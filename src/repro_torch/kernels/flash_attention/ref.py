@@ -1,0 +1,59 @@
+"""Plain PyTorch prefill and decode attention — the semantics of the
+model's ``_sdpa_chunked`` (``repro/models/layers.py``), in the model's
+layouts.
+
+* GQA: query head ``h`` reads KV head ``h // rep`` (``rep = H // Hkv``).
+* q is scaled by ``1/sqrt(D)`` in its own dtype before the product.
+* logits and softmax are fp32; masked logits are ``-1e30``.
+* the softmax weights are cast to the value dtype for the PV product,
+  which accumulates in fp32; the output is in the value dtype.
+
+These run on whatever device their inputs are on; ``ops`` sends only
+CPU tensors here.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, q_offset: int = 0) -> torch.Tensor:
+    """Causal GQA attention.  q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D).
+
+    Query row ``i`` sits at absolute position ``q_offset + i`` and sees
+    keys at positions ``<= q_offset + i`` (the model's alignment, not
+    the Pallas kernel's top-left one).  Returns (B, Sq, H, D)."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    qg = (q * (1.0 / math.sqrt(D))).reshape(B, Sq, Hkv, rep, D)
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(), k.float())
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    kpos = torch.arange(Skv, device=q.device)
+    mask = kpos[None, :] <= qpos[:, None]                    # (Sq, Skv)
+    logits = logits.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhrqk,bkhd->bqhrd", w.to(v.dtype).float(), v.float())
+    return o.reshape(B, Sq, H, D).to(v.dtype)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """One-token GQA attention over a KV cache.  q: (B, H, D); k/v: the
+    cache of one layer, (B, T, Hkv, D); lengths: (B,) valid KV length
+    per row (``pos + 1``).  Returns (B, H, D)."""
+    B, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    qg = (q * (1.0 / math.sqrt(D))).reshape(B, Hkv, rep, D)
+    logits = torch.einsum("bhrd,bkhd->bhrk", qg.float(), k.float())
+    valid = torch.arange(T, device=q.device)[None, :] \
+        < lengths.to(q.device)[:, None]                      # (B, T)
+    logits = logits.masked_fill(~valid[:, None, None, :], NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhrk,bkhd->bhrd", w.to(v.dtype).float(), v.float())
+    return o.reshape(B, H, D).to(v.dtype)

@@ -1,0 +1,121 @@
+"""The port's plain prefill and decode attention (the CPU side of K1/K2)
+against three JAX references, at fp32 with atol = rtol = 1e-5:
+
+  * ``attention_ref`` / ``decode_ref`` (the Pallas kernels' oracles),
+  * the Pallas kernels ``flash_attention_prefill`` /
+    ``flash_attention_decode`` in interpret mode, after a transpose to
+    their (B, H, S, D) layout,
+  * the model's own ``layers._sdpa_chunked`` in the model's layout.
+
+Inputs come from a numpy seed.  The Pallas prefill aligns its causal
+mask top-left and ``attention_ref`` bottom-right; both agree with the
+model only when Sq == Skv, so the q_offset > 0 cases compare against
+``_sdpa_chunked`` alone.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_decode, flash_attention_prefill)
+from repro.kernels.flash_attention.ref import (  # noqa: E402
+    attention_ref, decode_ref)
+from repro.models.layers import _sdpa_chunked  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _randn(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("S", [8, 13, 37])
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (4, 2), (8, 2)])
+def test_prefill_matches_jax_references(H, Hkv, S):
+    rng = np.random.default_rng(1000 * H + 10 * Hkv + S)
+    B, D = 2, 16
+    q, k, v = _randn(rng, B, S, H, D), _randn(rng, B, S, Hkv, D), \
+        _randn(rng, B, S, Hkv, D)
+    got = ref.prefill_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v)).numpy()
+    # model layout (B, S, H, D)
+    model = _sdpa_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          causal=True, q_offset=0, window=None, chunk=512)
+    np.testing.assert_allclose(got, np.asarray(model), **TOL)
+    # kernel layout (B, H, S, D)
+    qt, kt, vt = (jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (q, k, v))
+    for want in (attention_ref(qt, kt, vt, causal=True),
+                 flash_attention_prefill(qt, kt, vt, causal=True,
+                                         interpret=True)):
+        np.testing.assert_allclose(
+            got, np.asarray(want).transpose(0, 2, 1, 3), **TOL)
+
+
+@pytest.mark.parametrize("Sq,Skv", [(5, 12), (9, 40), (1, 7)])
+def test_prefill_q_offset_matches_model(Sq, Skv):
+    """Chunked-prefill alignment: query i sits at Skv - Sq + i."""
+    rng = np.random.default_rng(Sq * 100 + Skv)
+    B, H, Hkv, D = 2, 4, 2, 16
+    q, k, v = _randn(rng, B, Sq, H, D), _randn(rng, B, Skv, Hkv, D), \
+        _randn(rng, B, Skv, Hkv, D)
+    off = Skv - Sq
+    got = ref.prefill_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), q_offset=off).numpy()
+    model = _sdpa_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          causal=True, q_offset=off, window=None, chunk=512)
+    np.testing.assert_allclose(got, np.asarray(model), **TOL)
+
+
+@pytest.mark.parametrize("lengths", [[1, 17, 64], [64, 3, 40]])
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (4, 2), (8, 2)])
+def test_decode_matches_jax_references(H, Hkv, lengths):
+    rng = np.random.default_rng(H * 10 + Hkv + sum(lengths))
+    B, T, D = len(lengths), 64, 16
+    q, k, v = _randn(rng, B, H, D), _randn(rng, B, T, Hkv, D), \
+        _randn(rng, B, T, Hkv, D)
+    lens = np.asarray(lengths, np.int32)
+    got = ref.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v),
+                               torch.from_numpy(lens)).numpy()
+    # the model's decode: one query at position pos = length - 1
+    model = _sdpa_chunked(jnp.asarray(q)[:, None], jnp.asarray(k),
+                          jnp.asarray(v), causal=True,
+                          q_offset=jnp.asarray(lens - 1), window=None,
+                          chunk=512)[:, 0]
+    np.testing.assert_allclose(got, np.asarray(model), **TOL)
+    kt, vt = (jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (k, v))
+    for want in (decode_ref(jnp.asarray(q), kt, vt, jnp.asarray(lens)),
+                 flash_attention_decode(jnp.asarray(q), kt, vt,
+                                        jnp.asarray(lens), block_k=16,
+                                        interpret=True)):
+        np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+def test_ops_dispatch_cpu_to_plain_version():
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(_randn(rng, 2, 9, 4, 16)),
+               torch.from_numpy(_randn(rng, 2, 9, 2, 16)),
+               torch.from_numpy(_randn(rng, 2, 9, 2, 16)))
+    before = dict(kernel.LAUNCHES)
+    assert torch.equal(ops.prefill_attention(q, k, v),
+                       ref.prefill_attention(q, k, v))
+    lens = torch.tensor([3, 9], dtype=torch.int32)
+    assert torch.equal(ops.decode_attention(q[:, 0], k, v, lens),
+                       ref.decode_attention(q[:, 0], k, v, lens))
+    assert kernel.LAUNCHES == before
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A kernel wrapper never computes on its own: off the card it
+    raises instead of falling back to the plain version."""
+    q = torch.zeros(1, 4, 128)
+    kv = torch.zeros(1, 8, 2, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.flash_decode(q, kv, kv, torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.flash_prefill(q[:, None], kv, kv)
+    assert kernel._LIBS == {}
