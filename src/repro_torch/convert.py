@@ -41,9 +41,10 @@ def _unstack(tree: Any, i: int) -> Any:
 
 def params_from_jax(params: Dict[str, Any],
                     device: DeviceLike = None) -> Dict[str, Any]:
-    """JAX dense-decoder parameters (stacked ``layers`` leaves with a
-    leading layer axis) -> the port's parameters (a list of per-layer
-    dicts)."""
+    """JAX decoder parameters (stacked ``layers`` leaves with a leading
+    layer axis, e.g. MoE experts (L, E, d, f)) -> the port's parameters
+    (a list of per-layer dicts).  Dtypes are kept: the fp32 MoE router
+    stays fp32 in a bf16 model."""
     out = {k: tree_to_torch(v, device) for k, v in params.items()
            if k != "layers"}
     first = params["layers"]

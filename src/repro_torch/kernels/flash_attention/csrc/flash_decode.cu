@@ -9,9 +9,15 @@
  * What bounds it on the card: bytes.  A row of the batch reads
  * lengths[b] tokens of K and V for each KV head and does 4 FLOPs per
  * element read for each of the rep query heads that share it: at rep = 4
- * in bf16 that is about 4 FLOP per byte, far below the ~295 FLOP per byte
- * where the H100's tensor cores would become the limit.  So the kernel
- * has to keep enough loads in flight to stream K/V at the memory rate.
+ * (llama3-8b) or 8 (gpt-oss-20b) in bf16 that is 4-8 FLOP per byte, far
+ * below the ~295 FLOP per byte where the H100's tensor cores would become
+ * the limit.  So the kernel has to keep enough loads in flight to stream
+ * K/V at the memory rate.
+ *
+ * head_dim 64 and 128 are instantiated; a block has one thread per
+ * channel.  A sliding-window ring buffer needs nothing here: the caller
+ * passes min(pos + 1, capacity) as the length, and slot order does not
+ * matter because RoPE was applied before the cache write.
  *
  * What the design does about it:
  *  - split-KV (flash-decoding): the grid is (KV head, row, split); each
@@ -36,12 +42,12 @@
 
 namespace {
 
-constexpr int D = 128;        // head_dim; the wrapper rejects any other
 constexpr int BK = 64;        // tokens per KV tile
-constexpr int THREADS = 128;  // one thread per output channel d
 constexpr int MAX_REP = 16;   // query heads per KV head
-constexpr int DP = D + 1;     // padded K row (floats): conflict-free reads
 constexpr float NEG = -1e30f;
+// head_dim D is a template parameter (64 or 128; the wrapper rejects any
+// other): one thread per output channel, so a block has D threads, and K
+// rows are padded to D + 1 floats for conflict-free reads.
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -72,21 +78,24 @@ __device__ __forceinline__ float elem<__nv_bfloat16>(const uint4& u, int e) {
   return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
 }
 
-constexpr size_t kSmemBytes =
-    sizeof(float) * (MAX_REP * D + BK * DP + BK * D + MAX_REP * BK +
-                     3 * MAX_REP);
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (MAX_REP * D + BK * (D + 1) + BK * D +
+                          MAX_REP * BK + 3 * MAX_REP);
+}
 
 // Partial results of split sp for (row b, query head h) live at
 // part_acc[((b * H + h) * nsplit + sp) * D + d] (unnormalised accumulator)
 // and part_ml[((b * H + h) * nsplit + sp) * 2 + {0: max, 1: sum}].
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <int D, typename T>
+__global__ void __launch_bounds__(D)
     decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ lengths,
                         float* __restrict__ part_acc,
                         float* __restrict__ part_ml, int t_cap, int H,
                         int Hkv, int nsplit, float scale) {
+  constexpr int THREADS = D, DP = D + 1;
   extern __shared__ float smem[];
   const int rep = H / Hkv;
   float* qs = smem;                // rep x D, pre-scaled queries
@@ -220,7 +229,7 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // One block per (row, query head), thread d: merge the splits.
-template <typename T>
+template <int D, typename T>
 __global__ void __launch_bounds__(D)
     decode_combine_kernel(const float* __restrict__ part_acc,
                           const float* __restrict__ part_ml,
@@ -239,46 +248,61 @@ __global__ void __launch_bounds__(D)
   o[bh * D + d] = from_f<T>(acc / (l == 0.f ? 1.f : l));
 }
 
-template <typename T>
+template <int D, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* lengths, void* o, void* part_acc,
                    void* part_ml, int B, int t_cap, int H, int Hkv,
                    int nsplit, float scale, cudaStream_t stream) {
+  constexpr size_t kSmem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      decode_split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
+      decode_split_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
   if (err != cudaSuccess) return err;
-  decode_split_kernel<T>
-      <<<dim3(Hkv, B, nsplit), THREADS, kSmemBytes, stream>>>(
+  decode_split_kernel<D, T>
+      <<<dim3(Hkv, B, nsplit), D, kSmem, stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const int*>(lengths),
           static_cast<float*>(part_acc), static_cast<float*>(part_ml), t_cap,
           H, Hkv, nsplit, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<T><<<B * H, D, 0, stream>>>(
+  decode_combine_kernel<D, T><<<B * H, D, 0, stream>>>(
       static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
       static_cast<T*>(o), nsplit);
   return cudaGetLastError();
 }
 
+template <int D>
+int launch_dtype(int dtype, const void* q, const void* k, const void* v,
+                 const void* lengths, void* o, void* part_acc, void* part_ml,
+                 int B, int t_cap, int H, int Hkv, int nsplit, float scale,
+                 cudaStream_t s) {
+  if (dtype == 0)
+    return launch<D, float>(q, k, v, lengths, o, part_acc, part_ml, B, t_cap,
+                            H, Hkv, nsplit, scale, s);
+  if (dtype == 1)
+    return launch<D, __nv_bfloat16>(q, k, v, lengths, o, part_acc, part_ml,
+                                    B, t_cap, H, Hkv, nsplit, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  part_acc: float32 (B, H, nsplit, D);
-// part_ml: float32 (B, H, nsplit, 2).  Returns the cudaError_t of the
-// launches.
-extern "C" int fa_decode(int dtype, const void* q, const void* k,
-                         const void* v, const void* lengths, void* o,
-                         void* part_acc, void* part_ml, int B, int t_cap,
-                         int H, int Hkv, int nsplit, float scale,
+// dtype: 0 = float32, 1 = bfloat16; head_dim: 64 or 128.  part_acc:
+// float32 (B, H, nsplit, head_dim); part_ml: float32 (B, H, nsplit, 2).
+// Returns the cudaError_t of the launches.
+extern "C" int fa_decode(int dtype, int head_dim, const void* q,
+                         const void* k, const void* v, const void* lengths,
+                         void* o, void* part_acc, void* part_ml, int B,
+                         int t_cap, int H, int Hkv, int nsplit, float scale,
                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(q, k, v, lengths, o, part_acc, part_ml, B, t_cap, H,
-                         Hkv, nsplit, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, lengths, o, part_acc, part_ml, B,
-                                 t_cap, H, Hkv, nsplit, scale, s);
+  if (head_dim == 64)
+    return launch_dtype<64>(dtype, q, k, v, lengths, o, part_acc, part_ml, B,
+                            t_cap, H, Hkv, nsplit, scale, s);
+  if (head_dim == 128)
+    return launch_dtype<128>(dtype, q, k, v, lengths, o, part_acc, part_ml,
+                             B, t_cap, H, Hkv, nsplit, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -24,8 +24,13 @@
  *  - shared-memory rows are padded by 16 bytes, so every ldmatrix reads
  *    8 rows from 8 different bank groups;
  *  - the block loops over 64-key tiles and stops at the causal diagonal
- *    (keys at positions <= q_offset + last query); the longest query
+ *    (keys at positions <= q_offset + last query); with a sliding window
+ *    (a query at p sees keys in (p - window, p], as the Pallas kernel's
+ *    `window`) it starts at the first tile inside its first query's
+ *    window, so tiles wholly outside are never read; the longest query
  *    tiles are scheduled first;
+ *  - head_dim 64 (gpt-oss-20b) and 128 are instantiated: D/16 k-steps
+ *    for QK^T and D/8 n-tiles of 8 for PV;
  *  - Q, K and V are read in the model's layouts (B, S, H, D) and
  *    (B, S, Hkv, D) with GQA by index (query head h reads KV head
  *    h / rep), 16 bytes per thread per load: no transpose and no KV
@@ -44,11 +49,11 @@
 
 namespace {
 
-constexpr int D = 128;        // head_dim; the wrapper rejects any other
+// head_dim D is a template parameter (64 or 128; the wrapper rejects
+// any other).
 constexpr int BQ = 64;        // queries per block
 constexpr int BK = 64;        // keys per tile
 constexpr int THREADS = 128;  // 16 row groups x 8 column groups
-constexpr int DP = D + 1;     // padded Q/K row (floats)
 constexpr int PP = BK + 1;    // padded P row (floats)
 constexpr float NEG = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -56,15 +61,26 @@ constexpr unsigned FULL = 0xffffffffu;
 // ------------------------------------------------------------------ //
 // fp32: plain FMA from shared memory
 // ------------------------------------------------------------------ //
-constexpr size_t kSmemBytes =
-    sizeof(float) * (BQ * DP + BK * DP + BK * D + BQ * PP);
+template <int D>
+constexpr size_t fma_smem_bytes() {
+  return sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * PP);
+}
 
+// First key a query tile must read: the window of its first query starts
+// at q_offset + q0 - window + 1; rounded down to a whole tile.
+__device__ __forceinline__ int kv_begin(int q_offset, int q0, int window) {
+  return max(0, q_offset + q0 - window + 1) / BK * BK;
+}
+
+template <int D>
 __global__ void __launch_bounds__(THREADS)
     prefill_fma_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        int Sq, int Skv, int H, int Hkv, int q_offset,
-                       float scale) {
+                       int window, float scale) {
+  constexpr int DP = D + 1;   // padded Q/K row (floats)
+  constexpr int NJ = D / 8;   // output columns per thread
   extern __shared__ float smem[];
   float* qs = smem;          // BQ x DP, pre-scaled queries
   float* ks = qs + BQ * DP;  // BK x DP
@@ -88,18 +104,19 @@ __global__ void __launch_bounds__(THREADS)
         r < nq ? qb[(size_t)(q0 + r) * qrow + d] * scale : 0.f;
   }
 
-  float m[4], l[4], acc[4][16];
+  float m[4], l[4], acc[4][NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = NEG;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
 
-  // keys this tile can see: positions <= q_offset + q0 + nq - 1
+  // keys this tile can see: positions <= q_offset + q0 + nq - 1, and
+  // inside the window of its first query
   const int kv_end = min(Skv, q_offset + q0 + nq);
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+  for (int k0 = kv_begin(q_offset, q0, window); k0 < kv_end; k0 += BK) {
     const int n = min(BK, kv_end - k0);  // valid keys in this tile
     __syncthreads();                     // the previous tile is consumed
     for (int i = tid; i < BK * D; i += THREADS) {
@@ -140,7 +157,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = cg + 8 * j;
-        if (!(c < n && k0 + c <= qpos)) s[i][j] = NEG;
+        if (!(c < n && k0 + c <= qpos && k0 + c > qpos - window))
+          s[i][j] = NEG;
         mx = fmaxf(mx, s[i][j]);
       }
       // the 8 threads of a row group are adjacent lanes of one warp
@@ -153,8 +171,9 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = cg + 8 * j;
-        const float p =
-            (c < n && k0 + c <= qpos) ? expf(s[i][j] - m_new) : 0.f;
+        const float p = (c < n && k0 + c <= qpos && k0 + c > qpos - window)
+                            ? expf(s[i][j] - m_new)
+                            : 0.f;
         ps[(rg * 4 + i) * PP + c] = p;
         sum += p;
       }
@@ -164,7 +183,7 @@ __global__ void __launch_bounds__(THREADS)
       l[i] = l[i] * alpha + sum;
       m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) acc[i][j] *= alpha;
+      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
     }
     __syncthreads();
 
@@ -173,7 +192,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = ps[(rg * 4 + i) * PP + c];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const float vv = vs[c * D + cg + 8 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
@@ -188,7 +207,7 @@ __global__ void __launch_bounds__(THREADS)
       const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
       float* orow = o + ((size_t)b * Sq + q0 + r) * qrow + (size_t)h * D;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) orow[cg + 8 * j] = acc[i][j] * inv;
+      for (int j = 0; j < NJ; ++j) orow[cg + 8 * j] = acc[i][j] * inv;
     }
   }
 }
@@ -197,8 +216,16 @@ __global__ void __launch_bounds__(THREADS)
 // bf16: tensor cores (mma.sync m16n8k16, fp32 accumulation)
 // ------------------------------------------------------------------ //
 using bf16 = __nv_bfloat16;
-constexpr int LD = D + 8;  // smem row stride (bf16): 272 B, ldmatrix-safe
-constexpr size_t kMmaSmemBytes = sizeof(bf16) * (BQ + 2 * BK) * LD;
+// smem row stride (bf16): D + 8 elements (144 B or 272 B), so the 8 rows
+// of an ldmatrix fall in 8 different 16-byte bank groups
+template <int D>
+__host__ __device__ constexpr int ld_of() {
+  return D + 8;
+}
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  return sizeof(bf16) * (BQ + 2 * BK) * ld_of<D>();
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -238,11 +265,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Rows [0, n) of a 64 x 128 tile (global row stride `stride` elements)
+// Rows [0, n) of a 64 x D tile (global row stride `stride` elements)
 // into shared memory (row stride LD); rows n..63 are zero.
+template <int D>
 __device__ __forceinline__ void load_tile(bf16* dst,
                                           const bf16* __restrict__ src,
                                           size_t stride, int n, int tid) {
+  constexpr int LD = ld_of<D>();
   constexpr int ITEMS = 64 * (D / 8) / THREADS;  // 16-byte loads each
   uint4 r[ITEMS];
 #pragma unroll
@@ -261,11 +290,13 @@ __device__ __forceinline__ void load_tile(bf16* dst,
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(THREADS)
     prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o,
                        int Sq, int Skv, int H, int Hkv, int q_offset,
-                       float scale) {
+                       int window, float scale) {
+  constexpr int LD = ld_of<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // BQ x LD
   bf16* ks = qs + BQ * LD;                       // BK x LD
@@ -281,8 +312,8 @@ __global__ void __launch_bounds__(THREADS)
   const bf16* vb = v + (size_t)b * Skv * kvrow + (size_t)hk * D;
   const int nq = min(BQ, Sq - q0);
 
-  load_tile(qs, q + ((size_t)b * Sq + q0) * qrow + (size_t)h * D, qrow, nq,
-            tid);
+  load_tile<D>(qs, q + ((size_t)b * Sq + q0) * qrow + (size_t)h * D, qrow,
+               nq, tid);
   __syncthreads();
   // this warp's 16 query rows as A fragments, 8 steps of 16 channels
   uint32_t qf[D / 16][4];
@@ -291,7 +322,7 @@ __global__ void __launch_bounds__(THREADS)
     ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
                             (lane >> 4) * 8);
 
-  float acc[D / 8][4];  // O: 16 rows x 128 channels, 16 n-tiles of 8
+  float acc[D / 8][4];  // O: 16 rows x D channels, D/8 n-tiles of 8
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -299,11 +330,11 @@ __global__ void __launch_bounds__(THREADS)
   const int pos0 = q_offset + q0 + warp * 16 + g;  // position of row g
 
   const int kv_end = min(Skv, q_offset + q0 + nq);
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+  for (int k0 = kv_begin(q_offset, q0, window); k0 < kv_end; k0 += BK) {
     const int n = min(BK, kv_end - k0);
     __syncthreads();  // the previous tile is consumed
-    load_tile(ks, kb + (size_t)k0 * kvrow, kvrow, n, tid);
-    load_tile(vs, vb + (size_t)k0 * kvrow, kvrow, n, tid);
+    load_tile<D>(ks, kb + (size_t)k0 * kvrow, kvrow, n, tid);
+    load_tile<D>(vs, vb + (size_t)k0 * kvrow, kvrow, n, tid);
     __syncthreads();
 
     // S = Q K^T: 16 rows x 64 keys, 8 n-tiles of 8 keys
@@ -330,7 +361,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + j * 8 + 2 * c4 + (e & 1);
-        const bool ok = col < k0 + n && col <= pos0 + (e >> 1) * 8;
+        const int qp = pos0 + (e >> 1) * 8;
+        const bool ok = col < k0 + n && col <= qp && col > qp - window;
         live |= (uint32_t)ok << (j * 4 + e);
         s[j][e] = ok ? s[j][e] * scale : NEG;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
@@ -397,48 +429,72 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+template <int D>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v,
                         void* o, int B, int Sq, int Skv, int H, int Hkv,
-                        int q_offset, float scale, cudaStream_t stream) {
+                        int q_offset, int window, float scale,
+                        cudaStream_t stream) {
+  constexpr size_t kSmem = fma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      prefill_fma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
+      prefill_fma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  prefill_fma_kernel<<<grid, THREADS, kSmemBytes, stream>>>(
+  prefill_fma_kernel<D><<<grid, THREADS, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, Hkv,
-      q_offset, scale);
+      q_offset, window, scale);
   return cudaGetLastError();
 }
 
+template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* o, int B, int Sq, int Skv, int H, int Hkv,
-                        int q_offset, float scale, cudaStream_t stream) {
+                        int q_offset, int window, float scale,
+                        cudaStream_t stream) {
+  constexpr size_t kSmem = mma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      prefill_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kMmaSmemBytes);
+      prefill_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  prefill_mma_kernel<<<grid, THREADS, kMmaSmemBytes, stream>>>(
+  prefill_mma_kernel<D><<<grid, THREADS, kSmem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Skv, H, Hkv,
-      q_offset, scale);
+      q_offset, window, scale);
   return cudaGetLastError();
+}
+
+template <int D>
+int launch_dtype(int dtype, const void* q, const void* k, const void* v,
+                 void* o, int B, int Sq, int Skv, int H, int Hkv,
+                 int q_offset, int window, float scale, cudaStream_t s) {
+  if (dtype == 0)
+    return launch_fp32<D>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, window,
+                          scale, s);
+  if (dtype == 1)
+    return launch_bf16<D>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, window,
+                          scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
-extern "C" int fa_prefill(int dtype, const void* q, const void* k,
-                          const void* v, void* o, int B, int Sq, int Skv,
-                          int H, int Hkv, int q_offset, float scale,
-                          void* stream) {
+// dtype: 0 = float32, 1 = bfloat16; head_dim: 64 or 128.  A query at
+// position p sees keys at positions in (p - window, p]; the caller passes
+// a window of at least q_offset + Sq for none.  Returns the cudaError_t
+// of the launch.
+extern "C" int fa_prefill(int dtype, int head_dim, const void* q,
+                          const void* k, const void* v, void* o, int B,
+                          int Sq, int Skv, int H, int Hkv, int q_offset,
+                          int window, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_fp32(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, scale, s);
-  if (dtype == 1)
-    return launch_bf16(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, scale, s);
+  if (head_dim == 64)
+    return launch_dtype<64>(dtype, q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
+                            window, scale, s);
+  if (head_dim == 128)
+    return launch_dtype<128>(dtype, q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
+                             window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

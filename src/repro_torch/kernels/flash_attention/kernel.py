@@ -1,12 +1,9 @@
 """Build, bind and launch the flash-attention kernels K1 (decode) and K2
-(prefill), written in CUDA C++ for Hopper (``csrc/*.cu``).
+(prefill), written in CUDA C++ for Hopper (``csrc/*.cu``), at head_dim
+64 or 128.
 
-Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface and loaded with ``ctypes``.  The build happens
-at first use (never at import), from the sources in this folder, into
-``_build/`` beside them; the library's name carries a hash of its source
-and flags, so an edited source is rebuilt.  Both sources compile in
-parallel, one ``nvcc`` each.
+The sources are built at first use by ``repro_torch.kernels.nvcc`` into
+``_build/`` beside them (never at import).
 
 The wrappers check device, dtype, shape and contiguity, allocate the
 output with ``torch.empty``, launch on PyTorch's current stream without
@@ -16,28 +13,23 @@ synchronising, raise if the launch returned an error, and add one to
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+
+from repro_torch.kernels import nvcc
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = {"flash_decode": "flash_decode.cu",
            "flash_prefill": "flash_prefill.cu"}
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HEAD_DIM = 128
+HEAD_DIMS = (64, 128)
 MAX_REP = 16                     # query heads per KV head (K1)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
-BUILD_LOG: Dict[str, str] = {}   # nvcc/ptxas output of each fresh build
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -46,65 +38,32 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
-    return path
-
-
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+def build_jobs() -> nvcc.Jobs:
+    return nvcc.jobs(CSRC, BUILD_DIR, SOURCES)
 
 
 def build() -> Dict[str, Path]:
-    """Compile every source that has no library yet (all in parallel)
-    and load them.  Raises with the compiler's output on failure."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {name: _lib_path(name) for name in SOURCES}
-    todo = {n: p for n, p in paths.items() if not p.exists()}
-    procs = {}
-    nvcc = _nvcc() if todo else ""
-    for name, path in todo.items():
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, path)
-    failed = []
-    for name, (proc, tmp, path) in procs.items():
-        out, _ = proc.communicate()
-        BUILD_LOG[name] = out
-        if proc.returncode != 0:
-            failed.append(f"{name} (exit {proc.returncode}):\n{out}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, path)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    for name, path in paths.items():
+    """Compile the sources that have no library yet (in parallel) and
+    load them.  Raises with the compiler's output on failure."""
+    todo = build_jobs()
+    nvcc.compile_all(todo)
+    for name, (_, path) in todo.items():
         if name not in _LIBS:
             _LIBS[name] = _bind(name, ctypes.CDLL(str(path)))
-    return paths
+    return {name: path for name, (_, path) in todo.items()}
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "flash_decode":
-        lib.fa_decode.argtypes = [I, P, P, P, P, P, P, P, I, I, I, I, I,
+        lib.fa_decode.argtypes = [I, I, P, P, P, P, P, P, P, I, I, I, I, I,
                                   F, P]
         lib.fa_decode.restype = I
         lib.fa_decode_error_string.argtypes = [I]
         lib.fa_decode_error_string.restype = ctypes.c_char_p
     else:
-        lib.fa_prefill.argtypes = [I, P, P, P, P, I, I, I, I, I, I, F, P]
+        lib.fa_prefill.argtypes = [I, I, P, P, P, P, I, I, I, I, I, I, I, F,
+                                   P]
         lib.fa_prefill.restype = I
         lib.fa_prefill_error_string.argtypes = [I]
         lib.fa_prefill_error_string.restype = ctypes.c_char_p
@@ -128,8 +87,9 @@ def _check_common(name: str, q: torch.Tensor, *others: torch.Tensor):
                              f"dtype ({q.device}, {q.dtype})")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
-    if q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {q.shape[-1]} != {HEAD_DIM}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {q.shape[-1]} is not one of "
+                         f"{HEAD_DIMS}")
 
 
 def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
@@ -144,12 +104,6 @@ def decode_splits(B: int, Hkv: int, T: int, device: torch.device) -> int:
     per SM, and no more splits than the cache has 64-token tiles."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(-(-T // 64), -(-2 * sms // (B * Hkv))))
-
-
-def _raise_on(name: str, lib_fn_err, err: int) -> None:
-    if err != 0:
-        msg = lib_fn_err(err).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed ({err}: {msg})")
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -180,19 +134,22 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.fa_decode(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+        err = lib.fa_decode(_DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(),
                             v.data_ptr(), lengths.data_ptr(), o.data_ptr(),
                             part_acc.data_ptr(), part_ml.data_ptr(), B, T, H,
                             Hkv, nsplit, 1.0 / math.sqrt(D), stream)
-    _raise_on("flash_decode", lib.fa_decode_error_string, err)
+    nvcc.raise_on("flash_decode", lib.fa_decode_error_string, err)
     LAUNCHES["flash_decode"] += 1
     return o
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  q_offset: int = 0) -> torch.Tensor:
+                  q_offset: int = 0,
+                  window: Optional[int] = None) -> torch.Tensor:
     """K2.  q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D); causal with query
-    row i at absolute position ``q_offset + i``.  -> (B, Sq, H, D)."""
+    row i at absolute position ``q_offset + i``, and with a sliding
+    ``window`` it sees only keys at positions > its own - window.
+    -> (B, Sq, H, D)."""
     _check_common("flash_prefill", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("flash_prefill: q (B,Sq,H,D), k/v (B,Skv,Hkv,D)")
@@ -203,14 +160,19 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}")
     if q_offset < 0:
         raise ValueError(f"flash_prefill: q_offset {q_offset} < 0")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_prefill: window {window} < 1")
+    # no window: one wide enough that it masks nothing
+    win = q_offset + Sq if window is None else min(window, q_offset + Sq)
     _check_aligned("flash_prefill", q, k, v)
     lib = _lib("flash_prefill")
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.fa_prefill(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+        err = lib.fa_prefill(_DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(),
                              v.data_ptr(), o.data_ptr(), B, Sq, Skv, H, Hkv,
-                             int(q_offset), 1.0 / math.sqrt(D), stream)
-    _raise_on("flash_prefill", lib.fa_prefill_error_string, err)
+                             int(q_offset), int(win), 1.0 / math.sqrt(D),
+                             stream)
+    nvcc.raise_on("flash_prefill", lib.fa_prefill_error_string, err)
     LAUNCHES["flash_prefill"] += 1
     return o

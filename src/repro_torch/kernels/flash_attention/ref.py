@@ -14,6 +14,7 @@ CPU tensors here.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -21,12 +22,14 @@ NEG_INF = -1e30
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      *, q_offset: int = 0) -> torch.Tensor:
+                      *, q_offset: int = 0,
+                      window: Optional[int] = None) -> torch.Tensor:
     """Causal GQA attention.  q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D).
 
     Query row ``i`` sits at absolute position ``q_offset + i`` and sees
     keys at positions ``<= q_offset + i`` (the model's alignment, not
-    the Pallas kernel's top-left one).  Returns (B, Sq, H, D)."""
+    the Pallas kernel's top-left one) and, with a sliding ``window``,
+    ``> q_offset + i - window``.  Returns (B, Sq, H, D)."""
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -35,6 +38,8 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qpos = q_offset + torch.arange(Sq, device=q.device)
     kpos = torch.arange(Skv, device=q.device)
     mask = kpos[None, :] <= qpos[:, None]                    # (Sq, Skv)
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
     logits = logits.masked_fill(~mask, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhrqk,bkhd->bqhrd", w.to(v.dtype).float(), v.float())

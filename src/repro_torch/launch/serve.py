@@ -3,6 +3,11 @@ CUDA device (or the CPU with ``--device cpu``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_8b \
       --max-len 1024 --max-new 32 --trace poisson
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt_oss_20b \
+      --max-len 1024 --max-new 32 --trace poisson
+
+Dense and MoE architectures are served; the others raise
+``NotImplementedError``.
 
 Same flags as ``repro.launch.serve`` apart from the Tessera paths
 (``--disaggregate``, ``--policy``, ``--deployment``), which are not

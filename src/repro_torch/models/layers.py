@@ -1,20 +1,25 @@
-"""Dense decoder layers — the PyTorch counterpart of the dense parts of
-``repro/models/layers.py``.
+"""Decoder layers of the dense and MoE families — the PyTorch
+counterpart of those parts of ``repro/models/layers.py``.
 
 Plain functions over parameter dicts whose layouts are the JAX ones:
 ``wq`` (d, H, hd), ``wk``/``wv`` (d, Hkv, hd), ``wo`` (H, hd, d), MLP
-weights (d, f) and (f, d).  The large projections are ``torch.matmul``;
-attention goes through ``kernels.flash_attention.ops``, which runs the
+weights (d, f) and (f, d), MoE ``router`` (d, E) fp32 and expert
+weights (E, d, f) and (E, f, d).  The dense projections are
+``torch.matmul``; attention goes through ``kernels.flash_attention.ops``
+and the expert matmuls through ``kernels.moe_gmm.ops``, which run the
 hand-written kernels on the card and their plain versions on the CPU.
 
 The KV cache of one layer is (B, T, Hkv, D), as in JAX.  Unlike JAX,
 which returns a new cache, ``attention`` writes this step's K/V into
 the cache tensors IN PLACE (one row write per request at its
-position), so serving keeps one cache allocation for its lifetime.
+position), so serving keeps one cache allocation for its lifetime.  A
+sliding-window model's cache is a ring buffer of ``min(max_len,
+window)`` slots: position p lives in slot ``p % T``.
 
-Out of this slice: the sliding window and its ring buffer, M-RoPE,
-logit softcap and non-dense families (``check_supported`` raises
-``NotImplementedError``); chunked prefill at a cache offset (absent).
+Out of this slice: M-RoPE, logit softcap, expert-parallel MoE
+(``moe_impl="ep"``) and the ssm/hybrid/encdec/vlm families
+(``check_supported`` raises ``NotImplementedError``); chunked prefill at
+a cache offset (absent).
 """
 from __future__ import annotations
 
@@ -25,20 +30,22 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import ops as FA
+from repro_torch.kernels.moe_gmm import ops as G
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the options this slice of the port does not serve."""
-    if cfg.family != "dense":
+    """Raise for the options the port does not serve yet."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            "(dense only)")
-    for flag, what in ((cfg.sliding_window is not None, "sliding window"),
-                       (cfg.mrope, "M-RoPE"),
-                       (cfg.attn_logit_softcap > 0.0, "logit softcap")):
+            "(dense and moe only)")
+    for flag, what in ((cfg.mrope, "M-RoPE"),
+                       (cfg.attn_logit_softcap > 0.0, "logit softcap"),
+                       (cfg.family == "moe" and cfg.moe_impl == "ep",
+                        "expert-parallel MoE (needs a device mesh)")):
         if flag:
             raise NotImplementedError(f"{cfg.name}: {what} is not ported")
 
@@ -97,10 +104,12 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     ``rope`` holds the tables of this call's positions.
 
     * ``decode_pos`` None: prefill fill — this prompt's K/V go to cache
-      slots [0, S) and the queries attend causally over them (K2).
+      slots [0, S) (a ring buffer shorter than S keeps the last T
+      tokens, each at slot ``position % T``) and the queries attend
+      causally, within ``cfg.sliding_window``, over the prompt (K2).
     * ``decode_pos`` given: decode (S == 1) — a ``DecodePos`` of the
-      step; this token's K/V are written at each row's position and the
-      query attends over the first ``position + 1`` cache slots (K1).
+      step; this token's K/V are written at each row's slot and the
+      query attends over the row's first ``lengths`` cache slots (K1).
     Returns the output projection (B, S, d)."""
     B, S, _ = x.shape
     q = _project(x, p["wq"])
@@ -125,7 +134,8 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         _fill(kv_cache["k"], k)
         _fill(kv_cache["v"], v)
         out = FA.prefill_attention(q, k.to(kv_cache["k"].dtype),
-                                   v.to(kv_cache["v"].dtype), q_offset=0)
+                                   v.to(kv_cache["v"].dtype), q_offset=0,
+                                   window=cfg.sliding_window)
     H, hd = out.shape[2], out.shape[3]
     return (out.reshape(B * S, H * hd)
             @ p["wo"].reshape(H * hd, -1)).view(B, S, -1)
@@ -134,37 +144,54 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 class DecodePos(NamedTuple):
     """Per-step decode indices, built once and shared by every layer."""
     rows: torch.Tensor          # (B,) int64: 0 .. B-1
-    pos: torch.Tensor           # (B,) int64: the slot each row writes
-    lengths: torch.Tensor       # (B,) int32: pos + 1, the valid KV length
+    slot: torch.Tensor          # (B,) int64: the cache slot each row writes
+    lengths: torch.Tensor       # (B,) int32: the valid KV length
 
     @classmethod
-    def of(cls, pos: torch.Tensor) -> "DecodePos":
+    def of(cls, pos: torch.Tensor,
+           cap: Optional[int] = None) -> "DecodePos":
+        """Indices for absolute positions ``pos`` (B,).  With ``cap`` (a
+        ring buffer of ``cap`` slots) row b writes slot ``pos % cap`` and
+        reads ``min(pos + 1, cap)`` slots; without, slot ``pos`` and
+        ``pos + 1`` slots."""
         p = pos.long()
-        return cls(torch.arange(p.shape[0], device=p.device), p,
-                   (p + 1).to(torch.int32))
+        if cap is None:
+            slot, n = p, p + 1
+        else:
+            slot, n = p % cap, torch.clamp(p + 1, max=cap)
+        return cls(torch.arange(p.shape[0], device=p.device), slot,
+                   n.to(torch.int32))
 
 
 def _dyn_update(cache: torch.Tensor, val: torch.Tensor,
                 at: DecodePos) -> None:
-    """cache (B, T, H, D)[b, pos[b]] <- val (B, 1, H, D)[b, 0], in place:
-    one row write per request at its own position."""
-    cache[at.rows, at.pos] = val[:, 0].to(cache.dtype)
+    """cache (B, T, H, D)[b, slot[b]] <- val (B, 1, H, D)[b, 0], in
+    place: one row write per request at its own slot."""
+    cache[at.rows, at.slot] = val[:, 0].to(cache.dtype)
 
 
 def _fill(cache: torch.Tensor, val: torch.Tensor) -> None:
-    """cache[:, 0:S] <- val (B, S, H, D), in place."""
-    S = val.shape[1]
-    if S > cache.shape[1]:
-        raise ValueError(f"prefill of {S} tokens exceeds the cache's "
-                         f"{cache.shape[1]} slots")
-    cache[:, :S] = val.to(cache.dtype)
+    """Write a prefill's K/V (B, S, H, D) into a cache of T slots, in
+    place: slots [0, S) when S <= T; otherwise (a sliding-window ring
+    buffer shorter than the prompt) the last T tokens, each at slot
+    ``position % T``, as the JAX ``_fill`` does."""
+    T, S = cache.shape[1], val.shape[1]
+    if S <= T:
+        cache[:, :S] = val.to(cache.dtype)
+        return
+    slots = torch.arange(S - T, S, device=cache.device) % T
+    cache[:, slots] = val[:, S - T:].to(cache.dtype)
 
 
 def make_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   device: torch.device) -> Dict[str, torch.Tensor]:
-    """Zero-initialized stacked KV cache (L, B, T, Hkv, D)."""
+    """Zero-initialized stacked KV cache (L, B, T, Hkv, D); a sliding
+    window model allocates only the window (ring buffer):
+    T = min(max_len, window)."""
     check_supported(cfg)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+    T = max_len if cfg.sliding_window is None \
+        else min(max_len, cfg.sliding_window)
+    shape = (cfg.num_layers, batch, T, cfg.num_kv_heads,
              cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
@@ -180,6 +207,65 @@ def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     act = F.gelu(g, approximate="tanh") if cfg.activation == "geglu" \
         else F.silu(g)
     return (act * u) @ p["w_down"]
+
+
+# --------------------------------------------------------------------- #
+# Mixture of Experts: top-k router + sort-based ragged dispatch
+# --------------------------------------------------------------------- #
+def route(p: Params, xt: torch.Tensor,
+          cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routing of tokens ``xt`` (T, d): fp32 router logits, the k
+    largest per token, a softmax over their values.  Returns (gates
+    (T, k) fp32, expert_ids (T, k) int64)."""
+    logits = xt.float() @ p["router"]
+    gate_vals, expert_ids = torch.topk(logits, cfg.experts_per_token, dim=-1)
+    return torch.softmax(gate_vals, dim=-1), expert_ids
+
+
+def moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Dropless MoE, as the JAX ``layers.moe``.  ``ragged``: tokens
+    sorted by expert through three grouped matmuls (K3), exact active
+    FLOPs.  ``dense_einsum``: every expert on every token, masked
+    combine.
+
+    Nothing here reads a device value on the host: the group sizes are
+    counted with ``scatter_add_`` (``bincount`` on CUDA reads the
+    input's max on the host) and K3 finds each tile's expert from them
+    on the device, so a decode step stays free of host syncs."""
+    B, S, d = x.shape
+    T, k, E = B * S, cfg.experts_per_token, cfg.num_experts
+    xt = x.reshape(T, d)
+    gates, expert_ids = route(p, xt, cfg)                         # (T, k)
+
+    if cfg.moe_impl == "dense_einsum":
+        # combine weights (T, E): the gate of each chosen expert
+        combine = torch.zeros(T, E, dtype=torch.float32,
+                              device=x.device).scatter_add_(1, expert_ids,
+                                                            gates)
+        g = torch.einsum("td,edf->tef", xt, p["w_gate"])
+        u = torch.einsum("td,edf->tef", xt, p["w_up"])
+        h = F.silu(g) * u
+        y = torch.einsum("tef,efd->ted", h, p["w_down"])
+        out = torch.einsum("ted,te->td", y, combine.to(y.dtype))
+        return out.reshape(B, S, d)
+
+    # ragged (sort-based, dropless); the stable sort matches jnp.argsort
+    flat_expert = expert_ids.reshape(-1)                          # (T*k,)
+    sort_idx = torch.argsort(flat_expert, stable=True)
+    xs = xt[sort_idx // k]                                        # (T*k, d)
+    group_sizes = torch.zeros(E, dtype=torch.int32, device=x.device) \
+        .scatter_add_(0, flat_expert,
+                      torch.ones_like(flat_expert, dtype=torch.int32))
+    g = G.gmm(xs, p["w_gate"], group_sizes)
+    u = G.gmm(xs, p["w_up"], group_sizes)
+    h = (F.silu(g.float()) * u.float()).to(xs.dtype)
+    y = G.gmm(h, p["w_down"], group_sizes)                        # (T*k, d)
+    # unsort (inverse permutation) and combine with the gates in fp32
+    inv = torch.empty_like(sort_idx).scatter_(
+        0, sort_idx, torch.arange(T * k, device=x.device))
+    y = y[inv].reshape(T, k, d)
+    out = (y.float() * gates[..., None]).sum(dim=1)
+    return out.to(x.dtype).reshape(B, S, d)
 
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -245,6 +331,16 @@ def init_mlp(cfg: ModelConfig, g: torch.Generator,
     return {"w_gate": _normal((d, f), 1.0 / math.sqrt(d), g, dt, device),
             "w_up": _normal((d, f), 1.0 / math.sqrt(d), g, dt, device),
             "w_down": _normal((f, d), 1.0 / math.sqrt(f), g, dt, device)}
+
+
+def init_moe(cfg: ModelConfig, g: torch.Generator,
+             device: torch.device) -> Params:
+    d, f, E, dt = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.torch_dtype
+    s = 1.0 / math.sqrt(d)
+    return {"router": _normal((d, E), s, g, torch.float32, device),
+            "w_gate": _normal((E, d, f), s, g, dt, device),
+            "w_up": _normal((E, d, f), s, g, dt, device),
+            "w_down": _normal((E, f, d), 1.0 / math.sqrt(f), g, dt, device)}
 
 
 def init_embed(cfg: ModelConfig, g: torch.Generator,

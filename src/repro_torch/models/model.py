@@ -1,5 +1,5 @@
-"""Dense decoder assembly — the PyTorch counterpart of the dense branch
-of ``repro/models/model.py``.
+"""Decoder assembly — the PyTorch counterpart of the dense and MoE
+branch of ``repro/models/model.py``.
 
 Entry points:
   init_params(cfg, generator=, device=)      parameters on the device
@@ -10,7 +10,8 @@ Entry points:
 Parameters are the JAX pytree with the stacked ``layers`` leaves split
 into a Python list of per-layer dicts; the layer stack is a Python loop
 over it.  The cache keeps the JAX structure ``{"kv": {"k", "v"}}`` with
-leaves (L, B, T, Hkv, D), and ``prefill``/``decode_step`` update it in
+leaves (L, B, T, Hkv, D) (T = min(max_len, window) for a sliding-window
+model, a ring buffer), and ``prefill``/``decode_step`` update it in
 place (returning the same object).  Entry points run on the card unless
 ``device`` names another; with no CUDA present the default raises.
 """
@@ -41,10 +42,12 @@ def init_params(cfg: ModelConfig, *,
     dt = cfg.torch_dtype
     p: Params = {"embed": L.init_embed(cfg, g, dev),
                  "final_norm": L.init_rmsnorm(cfg.d_model, dt, dev)}
+    ffn, init_ffn = ("moe", L.init_moe) if cfg.family == "moe" \
+        else ("mlp", L.init_mlp)
     p["layers"] = [{"ln1": L.init_rmsnorm(cfg.d_model, dt, dev),
                     "attn": L.init_attention(cfg, g, dev),
                     "ln2": L.init_rmsnorm(cfg.d_model, dt, dev),
-                    "mlp": L.init_mlp(cfg, g, dev)}
+                    ffn: init_ffn(cfg, g, dev)}
                    for _ in range(cfg.num_layers)]
     return p
 
@@ -61,7 +64,11 @@ def _dense_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
     h = L.attention(lp["attn"], L.rms_norm(lp["ln1"], x, cfg.norm_eps), cfg,
                     rope=rope, kv_cache=cache, decode_pos=decode_pos)
     x = x + h
-    y = L.mlp(lp["mlp"], L.rms_norm(lp["ln2"], x, cfg.norm_eps), cfg)
+    y_in = L.rms_norm(lp["ln2"], x, cfg.norm_eps)
+    if cfg.family == "moe":
+        y = L.moe(lp["moe"], y_in, cfg)
+    else:
+        y = L.mlp(lp["mlp"], y_in, cfg)
     return x + y
 
 
@@ -89,6 +96,10 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     [0, S) of every layer, and return the logits (B, V) at each row's
     ``last_pos`` (default: the final column) with the cache."""
     B, S = tokens.shape
+    T = cache["kv"]["k"].shape[2]
+    if S > T and cfg.sliding_window is None:
+        raise ValueError(f"prefill of {S} tokens exceeds the cache's "
+                         f"{T} slots")
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     x = _run_layers(params, cfg, _embed(params, cfg, tokens), cache,
@@ -106,8 +117,12 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Params, pos: torch.Tensor
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step.  tokens: (B, 1) int; pos: (B,) absolute positions
-    (the cache slot each row writes).  Returns (logits (B, V), cache)."""
+    (each row writes cache slot ``pos``, or ``pos % T`` in a
+    sliding-window ring buffer of T slots).  Returns (logits (B, V),
+    cache)."""
+    cap = cache["kv"]["k"].shape[2] if cfg.sliding_window is not None \
+        else None
     x = _run_layers(params, cfg, _embed(params, cfg, tokens), cache,
-                    pos[:, None], L.DecodePos.of(pos))
+                    pos[:, None], L.DecodePos.of(pos, cap))
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg)[:, 0], cache

@@ -17,7 +17,9 @@
   * TTFT is stamped only after the device has finished the prefill.
 
 Out of this slice: paged KV, chunked prefill, sessions and handoff, and
-the ``decode_fn``/``prefill_fn`` hooks; only the dense family is served.
+the ``decode_fn``/``prefill_fn`` hooks; the dense and MoE families are
+served (both are exact under right-padded batched admission, as the JAX
+engine's ``_PAD_SAFE_FAMILIES``).
 
 Accounting note: completion times are observed at sync boundaries, so a
 request's ``finished`` stamp can be up to ``sync_every - 1`` decode steps
@@ -190,16 +192,19 @@ class ServingEngine:
         last = np.zeros(Gp, np.int32)
         last[:G] = np.asarray(lens) - 1
         dev = self.device
-        # The group's cache holds only S slots (not max_len): slots past a
-        # row's prompt are never read before decode writes them, since
-        # decode writes position pos before attending over [0, pos].
+        # The group's cache holds only min(S, window) slots (not max_len):
+        # slots past a row's prompt are never read before decode writes
+        # them, since decode writes position pos before attending over
+        # [0, pos] (or, in a ring buffer, over every slot only once
+        # positions have wrapped, when all of them have been written).
         cache_g = M.init_cache(self.cfg, Gp, S, device=dev)
         logits, cache_g = M.prefill(
             self.params, self.cfg, torch.from_numpy(toks).to(dev), cache_g,
             last_pos=torch.from_numpy(last).to(dev))
         idx = torch.tensor(slots_, dtype=torch.long, device=dev)
+        Tg = cache_g["kv"]["k"].shape[2]
         for c in ("k", "v"):
-            self.cache["kv"][c][:, idx, :S] = cache_g["kv"][c][:, :G]
+            self.cache["kv"][c][:, idx, :Tg] = cache_g["kv"][c][:, :G]
         # honest TTFT: the first token exists only once the device is done
         _wait(dev)
         t_ready = self._now(now)

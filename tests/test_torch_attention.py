@@ -119,3 +119,56 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernel.flash_prefill(q[:, None], kv, kv)
     assert kernel._LIBS == {}
+
+
+@pytest.mark.parametrize("S,window", [(13, 4), (37, 16), (40, 1)])
+@pytest.mark.parametrize("D", [16, 64])
+def test_windowed_prefill_matches_jax(D, S, window):
+    """Sliding-window prefill: a query at p sees keys in (p - window, p],
+    against the model's ``_sdpa_chunked(window=)`` and the Pallas prefill
+    with ``window`` in interpret mode."""
+    rng = np.random.default_rng(S * 100 + window + D)
+    B, H, Hkv = 2, 8, 2
+    q, k, v = _randn(rng, B, S, H, D), _randn(rng, B, S, Hkv, D), \
+        _randn(rng, B, S, Hkv, D)
+    got = ref.prefill_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), window=window).numpy()
+    model = _sdpa_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          causal=True, q_offset=0, window=window, chunk=512)
+    np.testing.assert_allclose(got, np.asarray(model), **TOL)
+    qt, kt, vt = (jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (q, k, v))
+    pallas = flash_attention_prefill(qt, kt, vt, causal=True, window=window,
+                                     interpret=True)
+    np.testing.assert_allclose(
+        got, np.asarray(pallas).transpose(0, 2, 1, 3), **TOL)
+    # a window as long as the prompt masks nothing
+    full = ref.prefill_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), window=S)
+    assert torch.equal(full, ref.prefill_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)))
+
+
+@pytest.mark.parametrize("lengths", [[1, 40, 64], [64, 64, 9]])
+def test_decode_head_dim_64_rep_8_matches_jax(lengths):
+    """gpt-oss-20b's attention shape: head_dim 64, 8 query heads per KV
+    head, over a full ring buffer (length = capacity) and ragged rows."""
+    rng = np.random.default_rng(sum(lengths))
+    B, T, H, Hkv, D = len(lengths), 64, 16, 2, 64
+    q, k, v = _randn(rng, B, H, D), _randn(rng, B, T, Hkv, D), \
+        _randn(rng, B, T, Hkv, D)
+    lens = np.asarray(lengths, np.int32)
+    got = ref.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v),
+                               torch.from_numpy(lens)).numpy()
+    # the model's ring-buffer decode: non-causal over kv_valid_len slots
+    model = _sdpa_chunked(jnp.asarray(q)[:, None], jnp.asarray(k),
+                          jnp.asarray(v), causal=False, q_offset=0,
+                          window=None, chunk=512,
+                          kv_valid_len=jnp.asarray(lens))[:, 0]
+    np.testing.assert_allclose(got, np.asarray(model), **TOL)
+    kt, vt = (jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (k, v))
+    pallas = flash_attention_decode(jnp.asarray(q), kt, vt,
+                                    jnp.asarray(lens), block_k=16,
+                                    interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+

@@ -23,6 +23,8 @@ SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir,
     ["--smoke", "--device", "cpu", "--trace", "poisson", "--requests", "5",
      "--max-new", "4", "--sync-every", "1"],
     ["--smoke", "--device", "cpu", "--arch", "gemma_2b", "--slots", "2"],
+    ["--smoke", "--device", "cpu", "--arch", "gpt_oss_20b", "--max-len",
+     "40", "--trace", "poisson", "--requests", "3", "--max-new", "6"],
 ])
 def test_serve_smoke_on_cpu(argv):
     out = serve.main(argv)

@@ -130,17 +130,32 @@ def test_convert_bfloat16_is_bit_exact():
                                   "rwkv6_3b", "zamba2_7b",
                                   "seamless_m4t_large_v2", "qwen2_vl_7b"])
 def test_unported_families_raise(arch):
+    """Families not ported yet raise; the MoE family is ported except its
+    expert-parallel ``ep`` path, which needs a device mesh."""
     cfg = TC.get_smoke(arch)
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, moe_impl="ep")
     with pytest.raises(NotImplementedError):
         TM.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         TM.init_cache(cfg, 1, 8, device="cpu")
 
 
-@pytest.mark.parametrize("option", [dict(sliding_window=16),
+@pytest.mark.parametrize("option", [dict(family="moe", moe_impl="ep"),
                                     dict(attn_logit_softcap=30.0),
                                     dict(mrope=True)])
 def test_unported_dense_options_raise(option):
     cfg = dataclasses.replace(TC.get_smoke("llama3_8b"), **option)
     with pytest.raises(NotImplementedError):
         TM.init_cache(cfg, 1, 8, device="cpu")
+
+
+def test_prefill_longer_than_cache_raises_without_window():
+    """Only a sliding-window ring buffer may take a prompt longer than the
+    cache; a full-length cache refuses it."""
+    _, tcfg = _cfgs("llama3_8b")
+    params = TM.init_params(tcfg, device="cpu")
+    toks = torch.zeros((1, 9), dtype=torch.int32)
+    with pytest.raises(ValueError, match="exceeds"):
+        TM.prefill(params, tcfg, toks, TM.init_cache(tcfg, 1, 8,
+                                                     device="cpu"))
