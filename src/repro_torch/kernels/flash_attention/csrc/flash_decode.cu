@@ -14,8 +14,9 @@
  * the limit.  So the kernel has to keep enough loads in flight to stream
  * K/V at the memory rate.
  *
- * head_dim 64 and 128 are instantiated; a block has one thread per
- * channel.  A sliding-window ring buffer needs nothing here: the caller
+ * head_dim 64, 112 and 128 are instantiated; a block has one thread per
+ * channel, so at 112 its last warp is half full: the warp-wide softmax
+ * reductions run only on the full warps.  A sliding-window ring buffer needs nothing here: the caller
  * passes min(pos + 1, capacity) as the length, and slot order does not
  * matter because RoPE was applied before the cache write.
  *
@@ -45,9 +46,9 @@ namespace {
 constexpr int BK = 64;        // tokens per KV tile
 constexpr int MAX_REP = 16;   // query heads per KV head
 constexpr float NEG = -1e30f;
-// head_dim D is a template parameter (64 or 128; the wrapper rejects any
-// other): one thread per output channel, so a block has D threads, and K
-// rows are padded to D + 1 floats for conflict-free reads.
+// head_dim D is a template parameter (64, 112 or 128; the wrapper rejects
+// any other): one thread per output channel, so a block has D threads, and
+// K rows are padded to D + 1 floats for conflict-free reads.
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -96,6 +97,9 @@ __global__ void __launch_bounds__(D)
                         float* __restrict__ part_ml, int t_cap, int H,
                         int Hkv, int nsplit, float scale) {
   constexpr int THREADS = D, DP = D + 1;
+  // warps whose 32 lanes all exist (at D = 112 the fourth warp has 16):
+  // only they run the full-mask shuffles of the softmax update
+  constexpr int FULL_WARPS = THREADS / 32;
   extern __shared__ float smem[];
   const int rep = H / Hkv;
   float* qs = smem;                // rep x D, pre-scaled queries
@@ -176,8 +180,8 @@ __global__ void __launch_bounds__(D)
       ps[h * BK + c] = s;
     }
     __syncthreads();
-    // online-softmax update: one warp per query head
-    for (int h = warp; h < rep; h += THREADS / 32) {
+    // online-softmax update: one full warp per query head
+    for (int h = warp; warp < FULL_WARPS && h < rep; h += FULL_WARPS) {
       const float s0 = ps[h * BK + lane], s1 = ps[h * BK + lane + 32];
       float mx = fmaxf(s0, s1);
 #pragma unroll
@@ -288,7 +292,7 @@ int launch_dtype(int dtype, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim: 64 or 128.  part_acc:
+// dtype: 0 = float32, 1 = bfloat16; head_dim: 64, 112 or 128.  part_acc:
 // float32 (B, H, nsplit, head_dim); part_ml: float32 (B, H, nsplit, 2).
 // Returns the cudaError_t of the launches.
 extern "C" int fa_decode(int dtype, int head_dim, const void* q,
@@ -300,6 +304,9 @@ extern "C" int fa_decode(int dtype, int head_dim, const void* q,
   if (head_dim == 64)
     return launch_dtype<64>(dtype, q, k, v, lengths, o, part_acc, part_ml, B,
                             t_cap, H, Hkv, nsplit, scale, s);
+  if (head_dim == 112)
+    return launch_dtype<112>(dtype, q, k, v, lengths, o, part_acc, part_ml,
+                             B, t_cap, H, Hkv, nsplit, scale, s);
   if (head_dim == 128)
     return launch_dtype<128>(dtype, q, k, v, lengths, o, part_acc, part_ml,
                              B, t_cap, H, Hkv, nsplit, scale, s);

@@ -5,9 +5,13 @@ CUDA device (or the CPU with ``--device cpu``).
       --max-len 1024 --max-new 32 --trace poisson
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt_oss_20b \
       --max-len 1024 --max-new 32 --trace poisson
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b \
+      --max-len 1024 --max-new 32 --trace poisson      # or zamba2_7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --arch zamba2_7b
 
-Dense and MoE architectures are served; the others raise
-``NotImplementedError``.
+Dense, MoE, ssm (rwkv6) and hybrid (zamba2) architectures are served;
+the encdec and vlm ones raise ``NotImplementedError``.
 
 Same flags as ``repro.launch.serve`` apart from the Tessera paths
 (``--disaggregate``, ``--policy``, ``--deployment``), which are not

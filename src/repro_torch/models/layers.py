@@ -1,5 +1,6 @@
-"""Decoder layers of the dense and MoE families — the PyTorch
-counterpart of those parts of ``repro/models/layers.py``.
+"""Decoder layers — the PyTorch counterpart of the dense, MoE and
+shared-attention parts of ``repro/models/layers.py`` (the recurrent
+blocks are in ``ssm.py``).
 
 Plain functions over parameter dicts whose layouts are the JAX ones:
 ``wq`` (d, H, hd), ``wk``/``wv`` (d, Hkv, hd), ``wo`` (H, hd, d), MLP
@@ -16,10 +17,11 @@ position), so serving keeps one cache allocation for its lifetime.  A
 sliding-window model's cache is a ring buffer of ``min(max_len,
 window)`` slots: position p lives in slot ``p % T``.
 
-Out of this slice: M-RoPE, logit softcap, expert-parallel MoE
-(``moe_impl="ep"``) and the ssm/hybrid/encdec/vlm families
-(``check_supported`` raises ``NotImplementedError``); chunked prefill at
-a cache offset (absent).
+Ported: the dense, MoE, ssm (rwkv6) and hybrid (zamba2) families.  Not
+ported yet: M-RoPE, logit softcap, expert-parallel MoE
+(``moe_impl="ep"``) and the encdec/vlm families (``check_supported``
+raises ``NotImplementedError``); chunked prefill at a cache offset
+(absent).
 """
 from __future__ import annotations
 
@@ -38,10 +40,14 @@ Params = Dict[str, Any]
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the options the port does not serve yet."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            "(dense and moe only)")
+            "(dense, moe, ssm and hybrid only)")
+    if cfg.family == "hybrid" and cfg.num_layers % cfg.hybrid_attn_every:
+        # the JAX model groups the layers as (num_layers // k, k) too
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not "
+                         f"split into groups of {cfg.hybrid_attn_every}")
     for flag, what in ((cfg.mrope, "M-RoPE"),
                        (cfg.attn_logit_softcap > 0.0, "logit softcap"),
                        (cfg.family == "moe" and cfg.moe_impl == "ep",
@@ -184,15 +190,16 @@ def _fill(cache: torch.Tensor, val: torch.Tensor) -> None:
 
 
 def make_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
-                  device: torch.device) -> Dict[str, torch.Tensor]:
-    """Zero-initialized stacked KV cache (L, B, T, Hkv, D); a sliding
-    window model allocates only the window (ring buffer):
-    T = min(max_len, window)."""
+                  device: torch.device,
+                  layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Zero-initialized stacked KV cache (L, B, T, Hkv, D), L = ``layers``
+    (default: every layer); a sliding window model allocates only the
+    window (ring buffer): T = min(max_len, window)."""
     check_supported(cfg)
     T = max_len if cfg.sliding_window is None \
         else min(max_len, cfg.sliding_window)
-    shape = (cfg.num_layers, batch, T, cfg.num_kv_heads,
-             cfg.head_dim)
+    L = cfg.num_layers if layers is None else layers
+    shape = (L, batch, T, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
 

@@ -1,19 +1,25 @@
-"""Decoder assembly — the PyTorch counterpart of the dense and MoE
-branch of ``repro/models/model.py``.
+"""Decoder assembly — the PyTorch counterpart of the dense, MoE, ssm
+(rwkv6) and hybrid (zamba2) branches of ``repro/models/model.py``.
 
 Entry points:
   init_params(cfg, generator=, device=)      parameters on the device
-  init_cache(cfg, batch, max_len, device=)    zero KV cache
+  init_cache(cfg, batch, max_len, device=)    zero cache
   prefill(params, cfg, tokens, cache, last_pos=)   fill cache, logits
   decode_step(params, cfg, tokens, cache, pos)     one token per row
 
 Parameters are the JAX pytree with the stacked ``layers`` leaves split
-into a Python list of per-layer dicts; the layer stack is a Python loop
-over it.  The cache keeps the JAX structure ``{"kv": {"k", "v"}}`` with
-leaves (L, B, T, Hkv, D) (T = min(max_len, window) for a sliding-window
-model, a ring buffer), and ``prefill``/``decode_step`` update it in
-place (returning the same object).  Entry points run on the card unless
-``device`` names another; with no CUDA present the default raises.
+into a Python list of per-layer dicts (the hybrid's one ``shared_attn``
+block stays a single dict); the layer stack is a Python loop over it.
+The cache keeps the JAX structure and layouts: ``{"kv": {"k", "v"}}``
+with leaves (L, B, T, Hkv, D) (T = min(max_len, window) for a
+sliding-window model, a ring buffer); ``{"rwkv": {"tm_x", "wkv",
+"cm_x"}}`` for ssm; ``{"mamba": {"ssm", "conv"}, "kv": ...}`` for
+hybrid, whose KV cache has one layer per shared-attention application.
+``prefill``/``decode_step`` update the cache in place (returning the
+same object).  A recurrent state integrates every token it is given, so
+ssm/hybrid prompts in one ``prefill`` must have equal lengths (the
+engine groups them so).  Entry points run on the card unless ``device``
+names another; with no CUDA present the default raises.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 
 from repro_torch import DeviceLike, default_generator, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SM
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
@@ -42,25 +49,50 @@ def init_params(cfg: ModelConfig, *,
     dt = cfg.torch_dtype
     p: Params = {"embed": L.init_embed(cfg, g, dev),
                  "final_norm": L.init_rmsnorm(cfg.d_model, dt, dev)}
-    ffn, init_ffn = ("moe", L.init_moe) if cfg.family == "moe" \
-        else ("mlp", L.init_mlp)
-    p["layers"] = [{"ln1": L.init_rmsnorm(cfg.d_model, dt, dev),
-                    "attn": L.init_attention(cfg, g, dev),
-                    "ln2": L.init_rmsnorm(cfg.d_model, dt, dev),
-                    ffn: init_ffn(cfg, g, dev)}
-                   for _ in range(cfg.num_layers)]
+    d = cfg.d_model
+    if cfg.family == "ssm":             # rwkv6
+        p["layers"] = [{"ln1": L.init_rmsnorm(d, dt, dev),
+                        "tm": SM.init_rwkv6(cfg, g, dev),
+                        "ln2": L.init_rmsnorm(d, dt, dev)}
+                       for _ in range(cfg.num_layers)]
+    elif cfg.family == "hybrid":        # zamba2
+        p["layers"] = [{"ln": L.init_rmsnorm(d, dt, dev),
+                        "mamba": SM.init_mamba2(cfg, g, dev)}
+                       for _ in range(cfg.num_layers)]
+        p["shared_attn"] = {"ln1": L.init_rmsnorm(d, dt, dev),
+                            "attn": L.init_attention(cfg, g, dev),
+                            "ln2": L.init_rmsnorm(d, dt, dev),
+                            "mlp": L.init_mlp(cfg, g, dev)}
+    else:
+        ffn, init_ffn = ("moe", L.init_moe) if cfg.family == "moe" \
+            else ("mlp", L.init_mlp)
+        p["layers"] = [{"ln1": L.init_rmsnorm(d, dt, dev),
+                        "attn": L.init_attention(cfg, g, dev),
+                        "ln2": L.init_rmsnorm(d, dt, dev),
+                        ffn: init_ffn(cfg, g, dev)}
+                       for _ in range(cfg.num_layers)]
     return p
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: DeviceLike = None) -> Params:
-    return {"kv": L.make_kv_cache(cfg, batch, max_len,
-                                  resolve_device(device))}
+    L.check_supported(cfg)
+    dev = resolve_device(device)
+    if cfg.family == "ssm":
+        return {"rwkv": SM.make_rwkv6_state(cfg, batch, dev)}
+    if cfg.family == "hybrid":
+        n_attn = -(-cfg.num_layers // cfg.hybrid_attn_every)
+        return {"mamba": SM.make_mamba2_state(cfg, batch, dev),
+                "kv": L.make_kv_cache(cfg, batch, max_len, dev,
+                                      layers=n_attn)}
+    return {"kv": L.make_kv_cache(cfg, batch, max_len, dev)}
 
 
 def _dense_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
                  rope, cache: Dict[str, torch.Tensor],
                  decode_pos: Optional[L.DecodePos] = None) -> torch.Tensor:
+    """A decoder block (attention + MLP or MoE); also the hybrid's shared
+    attention block, whose parameters have the same structure."""
     h = L.attention(lp["attn"], L.rms_norm(lp["ln1"], x, cfg.norm_eps), cfg,
                     rope=rope, kv_cache=cache, decode_pos=decode_pos)
     x = x + h
@@ -72,14 +104,57 @@ def _dense_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
     return x + y
 
 
+def _rwkv_block(lp: Params, x: torch.Tensor, cfg: ModelConfig,
+                state: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Time mix and channel mix (whose parameters live in the same "tm"
+    dict, as in JAX); ``state`` holds this layer's views, updated in
+    place."""
+    h, _ = SM.rwkv6_time_mix(lp["tm"], L.rms_norm(lp["ln1"], x, cfg.norm_eps),
+                             cfg, state={"tm_x": state["tm_x"],
+                                         "wkv": state["wkv"]})
+    x = x + h
+    y, _ = SM.rwkv6_channel_mix(lp["tm"],
+                                L.rms_norm(lp["ln2"], x, cfg.norm_eps), cfg,
+                                state=state["cm_x"])
+    return x + y
+
+
+def _mamba_block(lp: Params, x: torch.Tensor, cfg: ModelConfig,
+                 state: Dict[str, torch.Tensor]) -> torch.Tensor:
+    h, _ = SM.mamba2(lp["mamba"], L.rms_norm(lp["ln"], x, cfg.norm_eps), cfg,
+                     state=state)
+    return x + h
+
+
+def _layer_state(tree: Dict[str, torch.Tensor], i: int
+                 ) -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s views of a stacked state dict."""
+    return {k: v[i] for k, v in tree.items()}
+
+
 def _run_layers(params: Params, cfg: ModelConfig, x: torch.Tensor,
                 cache: Params, positions: torch.Tensor,
                 decode_pos: Optional[L.DecodePos] = None) -> torch.Tensor:
+    if cfg.family == "ssm":
+        for i, lp in enumerate(params["layers"]):
+            x = _rwkv_block(lp, x, cfg, _layer_state(cache["rwkv"], i))
+        return x
     rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     kv = cache["kv"]
+    if cfg.family == "hybrid":
+        # one shared attention + MLP block (its own KV layer per use)
+        # before each group of hybrid_attn_every mamba layers
+        k = cfg.hybrid_attn_every
+        for gi in range(cfg.num_layers // k):
+            x = _dense_block(params["shared_attn"], x, cfg, rope=rope,
+                             cache=_layer_state(kv, gi),
+                             decode_pos=decode_pos)
+            for i in range(gi * k, (gi + 1) * k):
+                x = _mamba_block(params["layers"][i], x, cfg,
+                                 _layer_state(cache["mamba"], i))
+        return x
     for i, lp in enumerate(params["layers"]):
-        x = _dense_block(lp, x, cfg, rope=rope,
-                         cache={"k": kv["k"][i], "v": kv["v"][i]},
+        x = _dense_block(lp, x, cfg, rope=rope, cache=_layer_state(kv, i),
                          decode_pos=decode_pos)
     return x
 
@@ -92,14 +167,18 @@ def _embed(params: Params, cfg: ModelConfig,
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache: Params, *, last_pos: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Params]:
-    """Process right-padded prompts ``tokens`` (B, S), fill cache slots
-    [0, S) of every layer, and return the logits (B, V) at each row's
-    ``last_pos`` (default: the final column) with the cache."""
+    """Process prompts ``tokens`` (B, S) from a fresh cache: fill KV
+    slots [0, S) of every attention layer and carry every recurrent
+    state over the S tokens.  Returns the logits (B, V) at each row's
+    ``last_pos`` (default: the final column) with the cache.  Attention
+    families take right-padded rows; recurrent ones need equal-length
+    rows, since a pad token would enter the state."""
     B, S = tokens.shape
-    T = cache["kv"]["k"].shape[2]
-    if S > T and cfg.sliding_window is None:
-        raise ValueError(f"prefill of {S} tokens exceeds the cache's "
-                         f"{T} slots")
+    if "kv" in cache:
+        T = cache["kv"]["k"].shape[2]
+        if S > T and cfg.sliding_window is None:
+            raise ValueError(f"prefill of {S} tokens exceeds the cache's "
+                             f"{T} slots")
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     x = _run_layers(params, cfg, _embed(params, cfg, tokens), cache,
@@ -117,12 +196,15 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Params, pos: torch.Tensor
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step.  tokens: (B, 1) int; pos: (B,) absolute positions
-    (each row writes cache slot ``pos``, or ``pos % T`` in a
-    sliding-window ring buffer of T slots).  Returns (logits (B, V),
-    cache)."""
-    cap = cache["kv"]["k"].shape[2] if cfg.sliding_window is not None \
-        else None
+    (each row writes KV slot ``pos``, or ``pos % T`` in a sliding-window
+    ring buffer of T slots, and advances its recurrent state by one
+    token).  Returns (logits (B, V), cache)."""
+    decode_pos = None
+    if "kv" in cache:
+        cap = cache["kv"]["k"].shape[2] if cfg.sliding_window is not None \
+            else None
+        decode_pos = L.DecodePos.of(pos, cap)
     x = _run_layers(params, cfg, _embed(params, cfg, tokens), cache,
-                    pos[:, None], L.DecodePos.of(pos, cap))
+                    pos[:, None], decode_pos)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg)[:, 0], cache

@@ -1,0 +1,246 @@
+"""State-space and RNN blocks — the PyTorch counterpart of
+``repro/models/ssm.py``: Mamba2 (SSD) and RWKV6 (Finch).
+
+Mamba2's prefill runs the chunked SSD scan through
+``kernels.mamba2_ssd.ops`` (K5), carrying the cache's incoming state;
+its decode (S == 1 with a state) is the O(1) recurrence in plain torch
+ops, as in JAX.  RWKV6's time mix runs the WKV recurrence through
+``kernels.rwkv6.ops`` (K4) at every length, decode included.
+
+Parameter dicts and state layouts are the JAX ones.  A ``state`` passed
+to a block is a dict of per-layer views into the model's stacked cache
+(``{"ssm": (B,H,N,P) fp32, "conv": (B,K-1,C)}`` for Mamba2,
+``{"tm_x": (B,d), "wkv": (B,H,P,P) fp32}`` and the channel mix's
+``(B,d)``); unlike JAX, which returns new state, the blocks write the
+new state into those views IN PLACE and return them.  With
+``state=None`` a block starts from zeros and returns no state.  The
+JAX rounding points are kept: the decay ``w`` and Mamba2's ``xh * dt``
+are fp32, the conv state is in the model dtype and both scan states
+are fp32.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.mamba2_ssd import ops as SSD
+from repro_torch.kernels.rwkv6 import ops as WKV
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import _normal
+
+Params = Dict[str, Any]
+
+
+def _uniform(shape, g: torch.Generator, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    return torch.rand(shape, generator=g, device=device,
+                      dtype=torch.float32).to(dtype)
+
+
+# ===================================================================== #
+# Mamba2 (SSD)
+# ===================================================================== #
+def init_mamba2(cfg: ModelConfig, g: torch.Generator,
+                device: torch.device) -> Params:
+    d, di, H, N = cfg.d_model, cfg.d_inner, cfg.ssm_heads, cfg.ssm_state
+    dt, f32 = cfg.torch_dtype, torch.float32
+    return {
+        # projections: z (gate), x, B, C, dt
+        "in_proj": _normal((d, 2 * di + 2 * N + H), 1.0 / math.sqrt(d), g,
+                           dt, device),
+        "conv_w": _normal((cfg.conv_width, di + 2 * N), 0.1, g, dt, device),
+        "conv_b": torch.zeros(di + 2 * N, dtype=dt, device=device),
+        "A_log": torch.zeros(H, dtype=f32, device=device),
+        "D": torch.ones(H, dtype=f32, device=device),
+        "dt_bias": torch.zeros(H, dtype=f32, device=device),
+        "out_norm": torch.ones(di, dtype=dt, device=device),
+        "out_proj": _normal((di, d), 1.0 / math.sqrt(di), g, dt, device),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv1d.  x: (B, S, C); w: (K, C); state:
+    (B, K-1, C), the previous tokens.  Returns (out, the last K-1
+    tokens) — the second a new tensor."""
+    B, S, C = x.shape
+    K = w.shape[0]
+    if state is None:
+        state = torch.zeros((B, K - 1, C), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state, x], dim=1)                  # (B, S+K-1, C)
+    out = torch.zeros((B, S, C), dtype=torch.float32, device=x.device)
+    for i in range(K):
+        out = out + xp[:, i:i + S].float() * w[i].float()
+    return (out + b.float()).to(x.dtype), xp[:, S:]
+
+
+def mamba2(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+           state: Optional[Dict[str, torch.Tensor]] = None
+           ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Mamba2 mixer.  ``state`` = {"ssm": (B,H,N,P) fp32, "conv":
+    (B,K-1,C)}, updated in place; None for a fresh sequence."""
+    B, S, d = x.shape
+    di, H, N, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    proj = x @ p["in_proj"]                            # (B,S,2di+2N+H)
+    z, xs, Bv, Cv, dt_raw = torch.split(proj, [di, di, N, N, H], dim=-1)
+    conv_in = torch.cat([xs, Bv, Cv], dim=-1)
+    conv_out, new_conv = _causal_conv(
+        conv_in, p["conv_w"], p["conv_b"],
+        state["conv"] if state is not None else None)
+    conv_out = F.silu(conv_out)
+    xs, Bv, Cv = torch.split(conv_out, [di, N, N], dim=-1)
+
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])                         # (H,) negative
+    a_log = dt * A                                     # (B,S,H) log decay
+    xh = xs.reshape(B, S, H, P)
+    xh_dt = xh.float() * dt[..., None]
+
+    if S == 1 and state is not None:
+        # recurrent decode step
+        h = state["ssm"]                               # (B,H,N,P)
+        a = torch.exp(a_log[:, 0])                     # (B,H)
+        h_new = h * a[:, :, None, None] + torch.einsum(
+            "bn,bhp->bhnp", Bv[:, 0].float(), xh_dt[:, 0])
+        y = torch.einsum("bn,bhnp->bhp", Cv[:, 0].float(), h_new)[:, None]
+        h.copy_(h_new)
+    else:
+        # the chunked scan from the incoming SSM state (zeros for a fresh
+        # sequence); K5 takes the ragged tail itself
+        h = state["ssm"] if state is not None else torch.zeros(
+            (B, H, N, P), dtype=torch.float32, device=x.device)
+        y = SSD.ssd(xh_dt, Bv, Cv, a_log, h, chunk=128)
+    if state is not None:
+        state["conv"].copy_(new_conv)
+
+    y = y + p["D"][None, None, :, None] * xh.float()
+    y = y.reshape(B, S, di).to(x.dtype)
+    # gated RMS norm (mamba2 style)
+    y32 = y.float() * F.silu(z.float())
+    var = y32.square().mean(dim=-1, keepdim=True)
+    y = (y32 * torch.rsqrt(var + cfg.norm_eps)
+         * p["out_norm"].float()).to(x.dtype)
+    return y @ p["out_proj"], state
+
+
+def make_mamba2_state(cfg: ModelConfig, batch: int,
+                      device: torch.device) -> Dict[str, torch.Tensor]:
+    L = cfg.num_layers
+    H, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    C = cfg.d_inner + 2 * cfg.ssm_state
+    return {
+        "ssm": torch.zeros((L, batch, H, N, P), dtype=torch.float32,
+                           device=device),
+        "conv": torch.zeros((L, batch, cfg.conv_width - 1, C),
+                            dtype=cfg.torch_dtype, device=device),
+    }
+
+
+# ===================================================================== #
+# RWKV6 (Finch)
+# ===================================================================== #
+def init_rwkv6(cfg: ModelConfig, g: torch.Generator,
+               device: torch.device) -> Params:
+    d, P, H, f = cfg.d_model, cfg.rwkv_head_dim, cfg.rwkv_heads, cfg.d_ff
+    dt, f32 = cfg.torch_dtype, torch.float32
+    s = 1.0 / math.sqrt(d)
+    lora = max(32, d // 64)
+    return {
+        # time-mix
+        "mu": _uniform((5, d), g, dt, device),         # r, k, v, w, g
+        "w_r": _normal((d, d), s, g, dt, device),
+        "w_k": _normal((d, d), s, g, dt, device),
+        "w_v": _normal((d, d), s, g, dt, device),
+        "w_g": _normal((d, d), s, g, dt, device),
+        "w_o": _normal((d, d), s, g, dt, device),
+        # data-dependent decay LoRA: w_t = exp(-exp(w0 + tanh(x A) B))
+        "w0": torch.full((d,), -2.0, dtype=f32, device=device),
+        "w_lora_a": _normal((d, lora), s, g, dt, device),
+        "w_lora_b": _normal((lora, d), 0.01, g, dt, device),
+        "u": torch.zeros((H, P), dtype=f32, device=device),   # bonus
+        "ln_x": torch.ones(d, dtype=dt, device=device),       # per-head norm
+        # channel-mix
+        "mu_c": _uniform((2, d), g, dt, device),
+        "ck": _normal((d, f), s, g, dt, device),
+        "cv": _normal((f, d), 1.0 / math.sqrt(f), g, dt, device),
+        "cr": _normal((d, d), s, g, dt, device),
+    }
+
+
+def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """shifted[t] = x[t-1]; shifted[0] = last (carried across steps)."""
+    if x.shape[1] == 1:
+        return last[:, None]
+    return torch.cat([last[:, None], x[:, :-1]], dim=1)
+
+
+def rwkv6_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                   state: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
+    """RWKV6 time mix.  ``state`` = {"tm_x": (B,d), "wkv": (B,H,P,P)
+    fp32}, updated in place; None for a fresh sequence."""
+    B, S, d = x.shape
+    H, P = cfg.rwkv_heads, cfg.rwkv_head_dim
+    last = state["tm_x"] if state is not None else \
+        torch.zeros((B, d), dtype=x.dtype, device=x.device)
+    prev = _token_shift(x, last)
+    mu = p["mu"]
+    xr = x + (prev - x) * mu[0]
+    xk = x + (prev - x) * mu[1]
+    xv = x + (prev - x) * mu[2]
+    xw = x + (prev - x) * mu[3]
+    xg = x + (prev - x) * mu[4]
+    r = (xr @ p["w_r"]).view(B, S, H, P)
+    k = (xk @ p["w_k"]).view(B, S, H, P)
+    v = (xv @ p["w_v"]).view(B, S, H, P)
+    g = F.silu(xg @ p["w_g"])
+    # data-dependent decay (the RWKV6 contribution), fp32
+    ww = p["w0"] + (torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]).float()
+    w = torch.exp(-torch.exp(ww)).view(B, S, H, P)    # in (0, 1)
+    s = state["wkv"] if state is not None else \
+        torch.zeros((B, H, P, P), dtype=torch.float32, device=x.device)
+    y = WKV.wkv(r, k, v, w, p["u"], s)                # s -> final state
+    # group norm per head (population variance)
+    var, mean = torch.var_mean(y, dim=-1, keepdim=True, correction=0)
+    yh = (y - mean) * torch.rsqrt(var + 64e-5)
+    y = yh.reshape(B, S, d) * p["ln_x"].float()
+    out = (y.to(x.dtype) * g) @ p["w_o"]
+    if state is not None:
+        state["tm_x"].copy_(x[:, -1])
+    return out, state
+
+
+def rwkv6_channel_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                      state: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """RWKV6 channel mix (relu^2).  ``state`` (B,d) is the last token,
+    updated in place; None for a fresh sequence."""
+    B, S, d = x.shape
+    last = state if state is not None else \
+        torch.zeros((B, d), dtype=x.dtype, device=x.device)
+    prev = _token_shift(x, last)
+    xk = x + (prev - x) * p["mu_c"][0]
+    xr = x + (prev - x) * p["mu_c"][1]
+    k = torch.square(F.relu(xk @ p["ck"]))
+    kv = k @ p["cv"]
+    out = torch.sigmoid(xr @ p["cr"]) * kv
+    if state is not None:
+        state.copy_(x[:, -1])
+    return out, state
+
+
+def make_rwkv6_state(cfg: ModelConfig, batch: int,
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+    L = cfg.num_layers
+    H, P, d = cfg.rwkv_heads, cfg.rwkv_head_dim, cfg.d_model
+    dt = cfg.torch_dtype
+    return {
+        "tm_x": torch.zeros((L, batch, d), dtype=dt, device=device),
+        "wkv": torch.zeros((L, batch, H, P, P), dtype=torch.float32,
+                           device=device),
+        "cm_x": torch.zeros((L, batch, d), dtype=dt, device=device),
+    }

@@ -4,10 +4,15 @@
 
   * a fixed ``slots`` decode batch; idle slots are masked, arriving
     requests are admitted into free slots (continuous batching),
-  * admissions are batched: all due arrivals that fit free slots go
-    through ONE prefill, right-padded to a common length S (a multiple
-    of 8) with the batch padded to a power of two — exact under causal
-    masking with per-row ``last_pos`` logit selection,
+  * admissions are batched: the due arrivals that fit free slots go
+    through one prefill per group, with the batch padded to a power of
+    two.  Attention families (dense, moe) form ONE group, right-padded
+    to a common length S (a multiple of 8) — exact under causal masking
+    with per-row ``last_pos`` logit selection.  Recurrent families (ssm,
+    hybrid) integrate every input token into their state, pads
+    included, so their arrivals are grouped by exact prompt length and
+    each group runs at S = that length, as the JAX engine's
+    ``_admission_groups``,
   * the decode loop is sync-free: ``last_tok``/``pos``/``budget`` and the
     active mask live on the device, sampling and termination run in the
     same stream as the decode step, and the sampled tokens/done flags
@@ -16,10 +21,9 @@
     ``torch.Generator`` on the engine's device,
   * TTFT is stamped only after the device has finished the prefill.
 
-Out of this slice: paged KV, chunked prefill, sessions and handoff, and
-the ``decode_fn``/``prefill_fn`` hooks; the dense and MoE families are
-served (both are exact under right-padded batched admission, as the JAX
-engine's ``_PAD_SAFE_FAMILIES``).
+Served: the dense, MoE, ssm (rwkv6) and hybrid (zamba2) families.  Out
+of this slice: paged KV, chunked prefill, sessions and handoff, and the
+``decode_fn``/``prefill_fn`` hooks.
 
 Accounting note: completion times are observed at sync boundaries, so a
 request's ``finished`` stamp can be up to ``sync_every - 1`` decode steps
@@ -29,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +42,11 @@ from repro_torch import DeviceLike, default_generator, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+
+# Families whose prefill is exact under right-padding (causal attention
+# never reads positions past the query).  Recurrent state (ssm/hybrid)
+# integrates every input token, so a padded row would corrupt it.
+_PAD_SAFE_FAMILIES = ("dense", "moe")
 
 
 @dataclasses.dataclass
@@ -173,9 +182,22 @@ class ServingEngine:
         pairs = list(zip(free, take))
         if not pairs:
             return 0
-        self._admit_group(pairs, now)
+        for group in self._admission_groups(pairs):
+            self._admit_group(group, now)
         self._recompute_remaining()
         return len(pairs)
+
+    def _admission_groups(self, pairs: List[Tuple[int, Request]]
+                          ) -> List[List[Tuple[int, Request]]]:
+        """Partition admitted (slot, request) pairs into prefill groups:
+        one padded batch for attention families, exact-length groups
+        (in order of first arrival) for recurrent ones."""
+        if self.cfg.family in _PAD_SAFE_FAMILIES:
+            return [pairs]
+        by_len: Dict[int, List[Tuple[int, Request]]] = {}
+        for s, r in pairs:
+            by_len.setdefault(len(r.prompt), []).append((s, r))
+        return list(by_len.values())
 
     def _admit_group(self, group: List, now: float) -> None:
         slots_ = [s for s, _ in group]
@@ -183,8 +205,13 @@ class ServingEngine:
         G = len(reqs)
         lens = [len(r.prompt) for r in reqs]
         # bucketed admission shapes, as the JAX engine pads for its jit:
-        # S to a multiple of 8, the batch to a power of two
-        S = min(-(-max(lens) // 8) * 8, self.max_len - 1)
+        # the batch to a power of two (pad rows are separate rows) and,
+        # for attention families only, S to a multiple of 8; a recurrent
+        # group has one exact length
+        if self.cfg.family in _PAD_SAFE_FAMILIES:
+            S = min(-(-max(lens) // 8) * 8, self.max_len - 1)
+        else:
+            S = max(lens)
         Gp = min(1 << (G - 1).bit_length(), self.slots)
         toks = np.zeros((Gp, S), np.int32)
         for i, r in enumerate(reqs):
@@ -192,7 +219,7 @@ class ServingEngine:
         last = np.zeros(Gp, np.int32)
         last[:G] = np.asarray(lens) - 1
         dev = self.device
-        # The group's cache holds only min(S, window) slots (not max_len):
+        # The group's cache holds only min(S, window) KV slots (not max_len):
         # slots past a row's prompt are never read before decode writes
         # them, since decode writes position pos before attending over
         # [0, pos] (or, in a ring buffer, over every slot only once
@@ -202,9 +229,7 @@ class ServingEngine:
             self.params, self.cfg, torch.from_numpy(toks).to(dev), cache_g,
             last_pos=torch.from_numpy(last).to(dev))
         idx = torch.tensor(slots_, dtype=torch.long, device=dev)
-        Tg = cache_g["kv"]["k"].shape[2]
-        for c in ("k", "v"):
-            self.cache["kv"][c][:, idx, :Tg] = cache_g["kv"][c][:, :G]
+        self._write_slots(idx, cache_g, G)
         # honest TTFT: the first token exists only once the device is done
         _wait(dev)
         t_ready = self._now(now)
@@ -232,19 +257,32 @@ class ServingEngine:
                 # completes at prefill (budget spent or EOS sampled)
                 self._finalize(req, t_ready)
 
+    def _write_slots(self, idx: torch.Tensor, cache_g: Dict[str, Any],
+                     rows: int) -> None:
+        """Copy rows 0..rows of a group's prefill cache into engine slots
+        ``idx``, one scatter per cache leaf.  KV leaves (L, B, T, ...)
+        fill their first T slots; recurrent leaves have no T axis."""
+        for part, leaves in cache_g.items():
+            for name, grp in leaves.items():
+                full = self.cache[part][name]
+                if part == "kv":
+                    full[:, idx, :grp.shape[2]] = grp[:, :rows]
+                else:
+                    full[:, idx] = grp[:, :rows]
+
     def warmup(self) -> None:
         """Run one prefill and one decode step so the first real request
         does not pay first-call costs (kernel build, allocator growth).
-        Engine state is untouched: the probe prefill uses its own cache,
-        and the decode probe writes only each slot's next position ``pos``,
-        which that slot's next real step overwrites before reading."""
-        cache1 = M.init_cache(self.cfg, 1, 8, device=self.device)
+        Engine state is untouched: both probes run on caches of their
+        own (a decode step advances every slot's recurrent state)."""
+        dev = self.device
         M.prefill(self.params, self.cfg,
-                  torch.zeros((1, 8), dtype=torch.int32, device=self.device),
-                  cache1)
+                  torch.zeros((1, 8), dtype=torch.int32, device=dev),
+                  M.init_cache(self.cfg, 1, 8, device=dev))
         M.decode_step(self.params, self.cfg, self.last_tok[:, None],
-                      self.cache, self.pos)
-        _wait(self.device)
+                      M.init_cache(self.cfg, self.slots, 8, device=dev),
+                      torch.zeros_like(self.pos))
+        _wait(dev)
 
     # ------------------------------------------------------------------ #
     # Sync-free decode loop
