@@ -7,12 +7,16 @@ Phases; any failure raises and the script exits non-zero:
   1. build    compile K1 (decode attention), K2 (prefill attention), K3
               (MoE grouped matmul), K4 (RWKV6 WKV) and K5 (Mamba2 SSD)
               from the repo's CUDA sources with nvcc for sm_90a, all five
-              sources in parallel;
+              sources in parallel; count the wgmma (HGMMA) and TMA load
+              (UTMALDG) instructions in the machine code of K2 and K3
+              (cuobjdump -sass) and fail if either is missing;
   2. kernels  hold each kernel against its plain PyTorch version on the
               card in fp32 (tight) and bf16 (stated tolerance) at the
               main paths' shapes (K1/K2 at llama3-8b's head_dim 128,
               gpt-oss-20b's 64 and zamba2-7b's 112, K2 also with a
-              sliding window; K3 at the decode and the prefill shape; K4
+              sliding window; K3 at the decode and the prefill shape, on
+              one expert, on ragged tails and on ragged groups at the
+              Large path with a depth of 1000; K4
               at rwkv6-3b's prefill, decode and a ragged length, from a
               nonzero state; K5 at zamba2-7b's prefill and a ragged
               length, from a nonzero state), and time kernel, plain
@@ -148,6 +152,8 @@ REPLACES = {"flash_decode": "src/repro/kernels/flash_attention/kernel.py:188",
             "gmm": "src/repro/kernels/moe_gmm/kernel.py:32",
             "wkv": "src/repro/kernels/rwkv6/kernel.py:53",
             "ssd": "src/repro/kernels/mamba2_ssd/kernel.py:76"}
+# libraries whose kernels must run on wgmma fed by TMA (phase 1)
+WGMMA_TMA_LIBS = ("flash_prefill", "gmm")
 FA_SRC = "src/repro_torch/kernels/flash_attention/csrc/"
 GMM_SRC = "src/repro_torch/kernels/moe_gmm/csrc/gmm.cu"
 WKV_SRC = "src/repro_torch/kernels/rwkv6/csrc/wkv.cu"
@@ -211,15 +217,24 @@ def phase_build(nvcc, kernels) -> None:
     for km in kernels:
         jobs.update(km.build_jobs())
     nvcc.compile_all(jobs)
+    libs = {}
     for km in kernels:
-        km.build()
+        libs.update(km.build())
     log(f"[build] K1-K5 ({len(jobs)} sources) built in "
         f"{time.perf_counter() - t:.2f} s (nvcc, sm_90a, one process per "
         "source)")
     for name, out in nvcc.BUILD_LOG.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "C75" in line:
                 log(f"[build] {name}: {line.strip()}")
+    # K2 and K3's Large path run on wgmma (SASS HGMMA) fed by TMA (UTMALDG)
+    for name in WGMMA_TMA_LIBS:
+        found = nvcc.sass_counts(libs[name], ("HGMMA", "UTMALDG"))
+        log(f"[build] {name}: SASS holds {found['HGMMA']} HGMMA and "
+            f"{found['UTMALDG']} UTMALDG instructions")
+        if not all(found.values()):
+            raise AssertionError(f"{name}: no wgmma or no TMA load in its "
+                                 f"machine code ({found})")
 
 
 # --------------------------------------------------------------------- #
@@ -351,6 +366,13 @@ GMM_DECODE = [1, 0, 2, 1, 0, 1, 1, 0, 2, 0, 1, 1, 0, 0, 1, 2,
               0, 0, 1, 0, 0, 1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0]
 GMM_PREFILL = [256 + 8 * ((7 * e) % 9) - 32 for e in range(31)] + [0]
 GMM_PREFILL[0] += 8192 - sum(GMM_PREFILL)
+# The Large (prefill) path on ragged groups: empty groups, groups of one
+# row and at the edges of 64-, 128- and 256-row tiles, 2,057 rows in all
+# (at least 64 per expert on average, so the Large path), at a depth K
+# that is not a multiple of the kernel's 64-deep stages.
+GMM_RAGGED_LARGE = [0, 1, 63, 64, 65, 127, 129, 300, 2, 255, 256, 257, 0,
+                    33, 97, 200] + [13] * 16
+GMM_RAGGED_K = 1000
 
 
 def grouped_mm_library():
@@ -389,6 +411,15 @@ def check_and_time_gmm(g, GK, GR, d=2880, f=2880, E=32) -> list:
                 f"nonempty={sum(1 for n in sizes if n)}: max abs err {e:.3e}")
             if dtype == torch.bfloat16:
                 errs[shape] = e
+        del w
+        w = (torch.randn(E, GMM_RAGGED_K, f, generator=g, device=DEV)
+             / GMM_RAGGED_K ** 0.5).to(dtype)
+        x, w, gs = gmm_inputs(g, dtype, GMM_RAGGED_LARGE, w)
+        e = check(f"K3 {tag} ragged Large M={x.shape[0]} K={GMM_RAGGED_K}",
+                  GK.gmm(x, w, gs), GR.gmm(x, w, gs), GMM_TOL[dtype])
+        log(f"[kernels] K3 {tag} ragged Large M={x.shape[0]} "
+            f"K={GMM_RAGGED_K} E={E} groups {GMM_RAGGED_LARGE}: max abs err "
+            f"{e:.3e}")
         del w
     dt = torch.bfloat16
     grouped, loop = grouped_mm_library()

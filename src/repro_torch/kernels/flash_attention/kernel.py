@@ -93,7 +93,9 @@ def _check_common(name: str, q: torch.Tensor, *others: torch.Tensor):
 
 
 def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels read rows with 16-byte loads."""
+    """K1 reads rows with 16-byte loads; K2's TMA tensor maps need a
+    16-byte-aligned base (their strides, D x 2 bytes and up, are multiples
+    of 16 at every supported head_dim)."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensor not 16-byte aligned")
