@@ -8,8 +8,10 @@ Phases; any failure raises and the script exits non-zero:
               (MoE grouped matmul), K4 (RWKV6 WKV) and K5 (Mamba2 SSD)
               from the repo's CUDA sources with nvcc for sm_90a, all five
               sources in parallel; count the wgmma (HGMMA) and TMA load
-              (UTMALDG) instructions in the machine code of K2 and K3
-              (cuobjdump -sass) and fail if either is missing;
+              (UTMALDG) instructions in the machine code of K2 and K3,
+              and the mma.sync (HMMA) and cp.async (LDGSTS) instructions
+              in that of K1 and K5 (cuobjdump -sass), and fail if any is
+              missing;
   2. kernels  hold each kernel against its plain PyTorch version on the
               card in fp32 (tight) and bf16 (stated tolerance) at the
               main paths' shapes (K1/K2 at llama3-8b's head_dim 128,
@@ -21,7 +23,8 @@ Phases; any failure raises and the script exits non-zero:
               nonzero state; K5 at zamba2-7b's prefill and a ragged
               length, from a nonzero state), and time kernel, plain
               version and, where there is one, one PyTorch call of the
-              same function;
+              same function (K5 also at B 1, the shape of every zamba2
+              serve admission);
   3. llama    full-width llama3-8b in bf16 (random weights from a seeded
               generator): one right-padded prefill and 8 decode steps
               through the kernels, each step under
@@ -152,8 +155,10 @@ REPLACES = {"flash_decode": "src/repro/kernels/flash_attention/kernel.py:188",
             "gmm": "src/repro/kernels/moe_gmm/kernel.py:32",
             "wkv": "src/repro/kernels/rwkv6/kernel.py:53",
             "ssd": "src/repro/kernels/mamba2_ssd/kernel.py:76"}
-# libraries whose kernels must run on wgmma fed by TMA (phase 1)
+# libraries whose kernels must run on wgmma fed by TMA, and those whose
+# bf16 paths must run on mma.sync fed by cp.async (phase 1)
 WGMMA_TMA_LIBS = ("flash_prefill", "gmm")
+MMA_CPASYNC_LIBS = ("flash_decode", "ssd")
 FA_SRC = "src/repro_torch/kernels/flash_attention/csrc/"
 GMM_SRC = "src/repro_torch/kernels/moe_gmm/csrc/gmm.cu"
 WKV_SRC = "src/repro_torch/kernels/rwkv6/csrc/wkv.cu"
@@ -227,14 +232,20 @@ def phase_build(nvcc, kernels) -> None:
         for line in out.splitlines():
             if "registers" in line or "spill" in line or "C75" in line:
                 log(f"[build] {name}: {line.strip()}")
-    # K2 and K3's Large path run on wgmma (SASS HGMMA) fed by TMA (UTMALDG)
-    for name in WGMMA_TMA_LIBS:
-        found = nvcc.sass_counts(libs[name], ("HGMMA", "UTMALDG"))
-        log(f"[build] {name}: SASS holds {found['HGMMA']} HGMMA and "
-            f"{found['UTMALDG']} UTMALDG instructions")
-        if not all(found.values()):
-            raise AssertionError(f"{name}: no wgmma or no TMA load in its "
-                                 f"machine code ({found})")
+    # K2 and K3's Large path run on wgmma (SASS HGMMA) fed by TMA
+    # (UTMALDG); K1's and K5's bf16 paths on mma.sync (HMMA) fed by
+    # cp.async (LDGSTS)
+    for names, ops in ((WGMMA_TMA_LIBS, ("HGMMA", "UTMALDG")),
+                       (MMA_CPASYNC_LIBS, ("HMMA", "LDGSTS"))):
+        for name in names:
+            found = nvcc.sass_counts(libs[name], ops)
+            log(f"[build] {name}: SASS holds "
+                + " and ".join(f"{n} {op}" for op, n in found.items())
+                + " instructions")
+            if not all(found.values()):
+                raise AssertionError(f"{name}: a tensor-core or async-copy "
+                                     f"instruction is missing from its "
+                                     f"machine code ({found})")
 
 
 # --------------------------------------------------------------------- #
@@ -519,7 +530,7 @@ def ssd_inputs(g, dtype, S, Bn=B):
             randn(g, Bn, H, N, P, dtype=f32) * 0.5)
 
 
-def ssd_bound(S: int, es: int) -> dict:
+def ssd_bound(S: int, es: int, Bn: int = B) -> dict:
     """Bytes: x and y (fp32), B and C (es), a_log, the state in and out.
     Operations: the recurrence's 4 N P per token and head (the chunked
     form does about twice as many), at the TF32 tensor-core rate:
@@ -527,9 +538,9 @@ def ssd_bound(S: int, es: int) -> dict:
     cores (3xTF32 keeps fp32 accuracy at a third of that rate, and is
     still under the bytes)."""
     H, P, N = SSD_SHAPE
-    tok = B * S * H
-    return bound(tok * P * 8 + B * S * N * 2 * es + tok * 4
-                 + 2 * B * H * N * P * 4, 4 * tok * N * P, "tf32")
+    tok = Bn * S * H
+    return bound(tok * P * 8 + Bn * S * N * 2 * es + tok * 4
+                 + 2 * Bn * H * N * P * 4, 4 * tok * N * P, "tf32")
 
 
 def check_and_time_ssd(g, SK, SR) -> list:
@@ -547,18 +558,24 @@ def check_and_time_ssd(g, SK, SR) -> list:
                 f"{e:.3e}")
             if dtype == torch.bfloat16:
                 err = max(err, e)
-    dt = torch.bfloat16
-    sets = [ssd_inputs(g, dt, PROMPT) for _ in range(3)]
-    row = {"name": "ssd_prefill", "route": "cuda", "source": SSD_SRC,
-           "replaces": REPLACES["ssd"], "launches": 0, "max_abs_err": err,
-           "ms": time_ms(SK.ssd, sets),
-           "plain_ms": time_ms(SR.ssd, sets, iters=10),
-           **ssd_bound(PROMPT, 2), "library_ms": None}
-    log(f"[kernels] ssd_prefill bf16 B={B} S={PROMPT} H={SSD_SHAPE[0]} P=64 "
-        f"N=64 timing: kernel {row['ms']:.4f} ms, plain "
-        f"{row['plain_ms']:.4f} ms, no library call, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
-    return [row]
+    dt, rows = torch.bfloat16, []
+    # B 4: the model check's prefill; B 1: every zamba2 serve admission
+    # (exact-length groups); 3 or 8 input sets of 134 or 34 MB, so that
+    # launches do not reuse L2
+    for name, Bn, n_sets in (("ssd_prefill", B, 3), ("ssd_prefill_b1", 1, 8)):
+        sets = [ssd_inputs(g, dt, PROMPT, Bn) for _ in range(n_sets)]
+        row = {"name": name, "route": "cuda", "source": SSD_SRC,
+               "replaces": REPLACES["ssd"], "launches": 0,
+               "max_abs_err": err, "ms": time_ms(SK.ssd, sets),
+               "plain_ms": time_ms(SR.ssd, sets, iters=10),
+               **ssd_bound(PROMPT, 2, Bn), "library_ms": None}
+        log(f"[kernels] {name} bf16 B={Bn} S={PROMPT} H={SSD_SHAPE[0]} "
+            f"P=64 N=64 timing: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, no library call, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        rows.append(row)
+        del sets
+    return rows
 
 
 # --------------------------------------------------------------------- #
@@ -902,7 +919,8 @@ SERVE_ROWS = {
             ("wkv_decode", "wkv", "decode")],
     "hybrid": [("flash_decode_d112", "flash_decode", "decode"),
                ("flash_prefill_d112", "flash_prefill", "prefill"),
-               ("ssd_prefill", "ssd", "prefill")],
+               ("ssd_prefill", "ssd", "prefill"),
+               ("ssd_prefill_b1", "ssd", "prefill")],
 }
 
 

@@ -12,95 +12,381 @@
  * (llama3-8b) or 8 (gpt-oss-20b) in bf16 that is 4-8 FLOP per byte, far
  * below the ~295 FLOP per byte where the H100's tensor cores would become
  * the limit.  So the kernel has to keep enough loads in flight to stream
- * K/V at the memory rate.
- *
- * head_dim 64, 112 and 128 are instantiated; a block has one thread per
- * channel, so at 112 its last warp is half full: the warp-wide softmax
- * reductions run only on the full warps.  A sliding-window ring buffer needs nothing here: the caller
- * passes min(pos + 1, capacity) as the length, and slot order does not
- * matter because RoPE was applied before the cache write.
+ * K/V at the memory rate, and do little else.
  *
  * What the design does about it:
  *  - split-KV (flash-decoding): the grid is (KV head, row, split); each
- *    block takes one slice of the row's valid tokens, so a batch of 4
- *    rows x 8 KV heads still puts about two blocks on every SM.  A second
- *    small kernel combines the splits' partial (max, sum, accumulator);
- *  - each block serves all rep query heads of its KV head, so each K/V
- *    tile is read from device memory once (the Pallas grid reads it once
- *    per query head);
- *  - it reads the cache in the model's layout (B, T, Hkv, D) in place,
- *    16 bytes per thread per load, all of a tile's loads started before
- *    any is used;
- *  - it stops at lengths[b] = pos[b] + 1: tokens past it are never read,
- *    and the ragged tail tile is masked, so T needs no divisibility;
- *  - online softmax with m, l and the accumulators in fp32; plain FMA,
- *    since the work per byte is too small for tensor cores to matter.
- * Left for later work: TMA bulk loads and a persistent grid.
+ *    block takes a run of whole 64-token tiles of the row's valid tokens
+ *    and serves all rep query heads of its KV head, so each K/V tile is
+ *    read from device memory once.  The wrapper plans the split count
+ *    from (B, Hkv, T, SM count) alone, never from the lengths;
+ *  - the splits are merged in the same launch: each block writes its
+ *    partial (max, sum, unnormalised output) and takes a ticket from a
+ *    per-(row, KV head) counter; the last block to finish merges them
+ *    and sets the counter back to 0 for the next call;
+ *  - bf16: K and V stay bf16 in a 3-stage shared-memory ring filled by
+ *    16-byte cp.async copies, the next tiles in flight while this one is
+ *    computed; QK^T and PV run on mma.sync m16n8k16 tensor cores with
+ *    fp32 accumulators.  The rep query heads are the 16 rows of A (zero
+ *    past rep); each of the four warps takes 16 tokens of a tile and
+ *    keeps its own online softmax on its accumulator fragments, whose
+ *    probabilities feed PV as A without leaving registers; the four warps
+ *    are merged through shared memory at the end.  Rows are padded by 16
+ *    bytes, so the ldmatrix reads are free of bank conflicts;
+ *  - fp32 (the tight check): one thread per channel, the tile staged in
+ *    shared memory, FMA for both products;
+ *  - it reads the cache in the model's layout (B, T, Hkv, D) in place and
+ *    stops at lengths[b] = pos[b] + 1: tokens past it are never read, and
+ *    the ragged tail tile is zero-filled and masked, so T needs no
+ *    divisibility.  A sliding-window ring buffer needs nothing here: the
+ *    caller passes min(pos + 1, capacity), and slot order does not matter
+ *    because RoPE was applied before the cache write.
+ * No host sync and no allocation: the wrapper allocates the partials and
+ * keeps the zeroed counters.
  */
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "../../csrc/mma.cuh"
 
 namespace {
 
-constexpr int BK = 64;        // tokens per KV tile
-constexpr int MAX_REP = 16;   // query heads per KV head
+constexpr int BK = 64;          // tokens per KV tile
+constexpr int THREADS = 128;    // four warps
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_REP = 16;     // query heads per KV head
+constexpr int MAX_SPLIT = 64;   // splits per (row, KV head)
+constexpr int STAGES = 3;       // bf16 K/V ring depth
 constexpr float NEG = -1e30f;
-// head_dim D is a template parameter (64, 112 or 128; the wrapper rejects
-// any other): one thread per output channel, so a block has D threads, and
-// K rows are padded to D + 1 floats for conflict-free reads.
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// Split sp's tokens [t0, t1) of a row with len valid tokens: the row's
+// tiles dealt out in runs of ceil(tiles / nsplit) (kernel.py mirrors it).
+__device__ __forceinline__ void split_range(int len, int nsplit, int sp,
+                                            int& t0, int& t1) {
+  const int tiles = (len + BK - 1) / BK;
+  const int per = (tiles + nsplit - 1) / nsplit * BK;
+  t0 = sp * per;
+  t1 = min(len, t0 + per);
 }
 
-// Element e of a 16-byte load holding VEC = 16 / sizeof(T) values (e is
-// a compile-time constant after unrolling, so the selects fold away).
-// A bf16 is the high half of the fp32 with the same bits.
-__device__ __forceinline__ uint32_t word(const uint4& u, int w) {
-  return w == 0 ? u.x : w == 1 ? u.y : w == 2 ? u.z : u.w;
+// Weight of a partial with max m in a merge whose max is M (a partial
+// that saw no token has m = -inf and weighs nothing).
+__device__ __forceinline__ float weight(float m, float M) {
+  return m == -INFINITY ? 0.f : expf(m - M);
 }
-template <typename T> __device__ __forceinline__ float elem(const uint4& u, int e);
-template <> __device__ __forceinline__ float elem<float>(const uint4& u, int e) {
-  return __uint_as_float(word(u, e));
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(bf16* p, float x) {
+  *p = __float2bfloat16(x);
 }
-template <>
-__device__ __forceinline__ float elem<__nv_bfloat16>(const uint4& u, int e) {
-  const uint32_t w = word(u, e >> 1);
-  return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+
+// The block's split of (row b, KV head hk) is in shared memory: acc_s
+// (rep x D, unnormalised), m_s and l_s (rep).  With one split, write the
+// output.  Otherwise write the partial, take a ticket, and if this block
+// is the last of its (row, KV head), merge every split's partial into the
+// output and reset the ticket.  wsm: rep x MAX_SPLIT floats of scratch,
+// lsum: rep floats.  Every thread of the block calls it.
+template <int D, typename T>
+__device__ void finish(const float* acc_s, const float* m_s,
+                       const float* l_s, float* wsm, float* lsum, int rep,
+                       T* o, float* __restrict__ part_acc,
+                       float* __restrict__ part_ml, int* tickets, int H,
+                       int Hkv, int nsplit) {
+  __shared__ int last;
+  const int hk = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  const int tid = threadIdx.x;
+  const size_t bh0 = (size_t)b * H + (size_t)hk * rep;  // first query head
+  T* ob = o + bh0 * D;
+  if (nsplit == 1) {
+    for (int i = tid; i < rep * D; i += THREADS) {
+      const float l = l_s[i / D];
+      store(ob + i, l > 0.f ? acc_s[i] / l : 0.f);
+    }
+    return;
+  }
+  // partials of (row b, query head h) at slot (b * H + h) * nsplit + sp
+  for (int i = tid; i < rep * D; i += THREADS) {
+    const int h = i / D, d = i % D;
+    part_acc[((bh0 + h) * nsplit + sp) * D + d] = acc_s[i];
+  }
+  if (tid < rep) {
+    part_ml[((bh0 + tid) * nsplit + sp) * 2] = m_s[tid];
+    part_ml[((bh0 + tid) * nsplit + sp) * 2 + 1] = l_s[tid];
+  }
+  __threadfence();
+  __syncthreads();
+  int* ticket = tickets + (size_t)b * Hkv + hk;
+  if (tid == 0) last = atomicAdd(ticket, 1) == nsplit - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (tid < rep) {
+    const float* ml = part_ml + (bh0 + tid) * nsplit * 2;
+    float M = -INFINITY;
+    for (int s = 0; s < nsplit; ++s) M = fmaxf(M, __ldcg(ml + 2 * s));
+    float L = 0.f;
+    for (int s = 0; s < nsplit; ++s) {
+      const float w = weight(__ldcg(ml + 2 * s), M);
+      wsm[tid * MAX_SPLIT + s] = w;
+      L = fmaf(__ldcg(ml + 2 * s + 1), w, L);
+    }
+    lsum[tid] = L;
+  }
+  __syncthreads();
+  for (int i = tid; i < rep * D; i += THREADS) {
+    const int h = i / D, d = i % D;
+    const float* pa = part_acc + (bh0 + h) * nsplit * D + d;
+    float acc = 0.f;
+    for (int s = 0; s < nsplit; ++s)
+      acc = fmaf(__ldcg(pa + (size_t)s * D), wsm[h * MAX_SPLIT + s], acc);
+    const float L = lsum[h];
+    store(ob + i, L > 0.f ? acc / L : 0.f);
+  }
+  if (tid == 0) *ticket = 0;
 }
+
+// ------------------------------------------------------------------ //
+// bf16: mma.sync over a cp.async ring
+// ------------------------------------------------------------------ //
+template <int D>
+struct MmaSmem {
+  static constexpr int DP = D + 8;  // padded row (bf16): 16 bytes more
+  static constexpr size_t ring = sizeof(bf16) * 2 * STAGES * BK * DP;
+  // after the loop: per-warp output rows, max and sum; the merged rows;
+  // the split merge's weights and sums
+  static constexpr size_t epilogue =
+      sizeof(float) * (WARPS * 16 * D + 2 * WARPS * 16 + MAX_REP * D +
+                       2 * MAX_REP + MAX_REP * MAX_SPLIT + MAX_REP);
+  static constexpr size_t bytes = ring > epilogue ? ring : epilogue;
+};
 
 template <int D>
-constexpr size_t smem_bytes() {
+__global__ void __launch_bounds__(THREADS)
+    decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const int* __restrict__ lengths, bf16* o,
+                      float* part_acc, float* part_ml, int* tickets,
+                      int t_cap, int H, int Hkv, int nsplit, float scale) {
+  constexpr int DP = MmaSmem<D>::DP;
+  constexpr int KS = D / 16;  // k-steps of QK^T
+  constexpr int NT = D / 8;   // n-tiles of PV (even at D = 64, 112, 128)
+  constexpr int CH = D / 8;   // 16-byte chunks per token row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // STAGES x BK x DP
+  bf16* vs = ks + STAGES * BK * DP;
+
+  const int hk = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rep = H / Hkv;
+  const int len = min(lengths[b], t_cap);
+  int t_begin, t_end;
+  split_range(len, nsplit, sp, t_begin, t_end);
+  const int ntiles = t_end > t_begin ? (t_end - t_begin + BK - 1) / BK : 0;
+  const size_t row = (size_t)Hkv * D;  // elements per cached token
+  const bf16* kb = k + (size_t)b * t_cap * row + (size_t)hk * D;
+  const bf16* vb = v + (size_t)b * t_cap * row + (size_t)hk * D;
+  const bf16* qb = q + ((size_t)b * H + (size_t)hk * rep) * D;
+
+  auto load_tile = [&](int i) {
+    const int t0 = t_begin + i * BK, slot = i % STAGES;
+#pragma unroll 4
+    for (int c = tid; c < BK * CH; c += THREADS) {
+      const int r = c / CH, e = (c % CH) * 8;
+      const bool ok = t0 + r < t_end;
+      const size_t off = (size_t)(ok ? t0 + r : t_begin) * row + e;
+      mma::cp_async16(ks + (slot * BK + r) * DP + e, kb + off, ok);
+      mma::cp_async16(vs + (slot * BK + r) * DP + e, vb + off, ok);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < ntiles) load_tile(i);
+    mma::cp_async_commit();
+  }
+
+  // Q as A fragments: rows are the rep query heads (zero past rep)
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const int c = kk * 16 + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = g + (j & 1) * 8, cc = c + (j >> 1) * 8;
+      qf[kk][j] = r < rep
+          ? *reinterpret_cast<const uint32_t*>(qb + (size_t)r * D + cc) : 0u;
+    }
+  }
+
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g, g+8
+  float oacc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) oacc[n][j] = 0.f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    mma::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile i has landed; tile i - 1's slot is free
+    if (i + STAGES - 1 < ntiles) load_tile(i + STAGES - 1);
+    mma::cp_async_commit();
+    const int slot = i % STAGES;
+    const bf16* kt = ks + (slot * BK + warp * 16) * DP;
+    const bf16* vt = vs + (slot * BK + warp * 16) * DP;
+
+    // S = Q K^T over this warp's 16 tokens: two n-tiles of 8 tokens
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t kf[4];  // matrices: (tokens 0-7 | 8-15) x (k 0-7 | 8-15)
+      mma::ldmatrix_x4(kf, kt + ((lane >> 4) * 8 + (lane & 7)) * DP +
+                               kk * 16 + ((lane >> 3) & 1) * 8);
+      mma::mma_bf16(s[0], qf[kk], kf[0], kf[1]);
+      mma::mma_bf16(s[1], qf[kk], kf[2], kf[3]);
+    }
+    // online softmax on the fragments: this thread holds rows g (s[j][0],
+    // s[j][1]) and g + 8 (s[j][2], s[j][3]); a row's 16 values sit in the
+    // four threads of a quad
+    const int tb = t_begin + i * BK + warp * 16 + 2 * t4;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = tb + j * 8 + e < t_end;
+        s[j][e] = ok ? s[j][e] * scale : -INFINITY;
+        s[j][2 + e] = ok ? s[j][2 + e] * scale : -INFINITY;
+        mx0 = fmaxf(mx0, s[j][e]);
+        mx1 = fmaxf(mx1, s[j][2 + e]);
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    // a row that has seen no token yet keeps max -inf: subtract 0 then
+    const float base0 = mn0 == -INFINITY ? 0.f : mn0;
+    const float base1 = mn1 == -INFINITY ? 0.f : mn1;
+    const float a0 = expf(m0 - base0), a1 = expf(m1 - base1);
+    m0 = mn0;
+    m1 = mn1;
+    float p[2][4];
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        p[j][e] = expf(s[j][e] - base0);
+        p[j][2 + e] = expf(s[j][2 + e] - base1);
+        rs0 += p[j][e];
+        rs1 += p[j][2 + e];
+      }
+    l0 = fmaf(l0, a0, rs0);  // this thread's share; the quad sums at the end
+    l1 = fmaf(l1, a1, rs1);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      oacc[n][0] *= a0;
+      oacc[n][1] *= a0;
+      oacc[n][2] *= a1;
+      oacc[n][3] *= a1;
+    }
+    // O += P V: the accumulator layout of S is the A layout of P
+    const uint32_t pa[4] = {mma::pack_bf16(p[0][0], p[0][1]),
+                            mma::pack_bf16(p[0][2], p[0][3]),
+                            mma::pack_bf16(p[1][0], p[1][1]),
+                            mma::pack_bf16(p[1][2], p[1][3])};
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t vf[4];  // transposed: (tokens 0-7 | 8-15) x (d +0 | +8)
+      mma::ldmatrix_x4_trans(vf, vt + (((lane >> 3) & 1) * 8 + (lane & 7)) *
+                                          DP + np * 16 + (lane >> 4) * 8);
+      mma::mma_bf16(oacc[2 * np], pa, vf[0], vf[1]);
+      mma::mma_bf16(oacc[2 * np + 1], pa, vf[2], vf[3]);
+    }
+  }
+  mma::cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the epilogue
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  float* wo = reinterpret_cast<float*>(smem_raw);  // WARPS x 16 x D
+  float* wm = wo + WARPS * 16 * D;                 // WARPS x 16
+  float* wl = wm + WARPS * 16;
+  float* acc_s = wl + WARPS * 16;                  // MAX_REP x D
+  float* m_s = acc_s + MAX_REP * D;
+  float* l_s = m_s + MAX_REP;
+  float* wsm = l_s + MAX_REP;                      // MAX_REP x MAX_SPLIT
+  float* lsum = wsm + MAX_REP * MAX_SPLIT;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int c = n * 8 + 2 * t4;
+    if (g < rep) {
+      wo[(warp * 16 + g) * D + c] = oacc[n][0];
+      wo[(warp * 16 + g) * D + c + 1] = oacc[n][1];
+    }
+    if (g + 8 < rep) {
+      wo[(warp * 16 + g + 8) * D + c] = oacc[n][2];
+      wo[(warp * 16 + g + 8) * D + c + 1] = oacc[n][3];
+    }
+  }
+  if (t4 == 0) {
+    wm[warp * 16 + g] = m0;
+    wm[warp * 16 + g + 8] = m1;
+    wl[warp * 16 + g] = l0;
+    wl[warp * 16 + g + 8] = l1;
+  }
+  __syncthreads();
+  for (int i = tid; i < rep * D; i += THREADS) {
+    const int h = i / D, d = i % D;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, wm[w * 16 + h]);
+    float acc = 0.f, L = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float e = weight(wm[w * 16 + h], M);
+      acc = fmaf(e, wo[(w * 16 + h) * D + d], acc);
+      L = fmaf(e, wl[w * 16 + h], L);
+    }
+    acc_s[i] = acc;
+    if (d == 0) {
+      m_s[h] = M;
+      l_s[h] = L;
+    }
+  }
+  __syncthreads();
+  finish<D>(acc_s, m_s, l_s, wsm, lsum, rep, o, part_acc, part_ml, tickets,
+            H, Hkv, nsplit);
+}
+
+// ------------------------------------------------------------------ //
+// fp32: FMA, one thread per channel
+// ------------------------------------------------------------------ //
+template <int D>
+constexpr size_t fma_smem_bytes() {
   return sizeof(float) * (MAX_REP * D + BK * (D + 1) + BK * D +
                           MAX_REP * BK + 3 * MAX_REP);
 }
 
-// Partial results of split sp for (row b, query head h) live at
-// part_acc[((b * H + h) * nsplit + sp) * D + d] (unnormalised accumulator)
-// and part_ml[((b * H + h) * nsplit + sp) * 2 + {0: max, 1: sum}].
-template <int D, typename T>
-__global__ void __launch_bounds__(D)
-    decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
-                        const int* __restrict__ lengths,
-                        float* __restrict__ part_acc,
-                        float* __restrict__ part_ml, int t_cap, int H,
-                        int Hkv, int nsplit, float scale) {
-  constexpr int THREADS = D, DP = D + 1;
-  // warps whose 32 lanes all exist (at D = 112 the fourth warp has 16):
-  // only they run the full-mask shuffles of the softmax update
-  constexpr int FULL_WARPS = THREADS / 32;
-  extern __shared__ float smem[];
+// Thread d < D owns output channel d; K rows are padded to D + 1 floats
+// for conflict-free reads.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+    decode_fma_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const int* __restrict__ lengths, float* o,
+                      float* part_acc, float* part_ml, int* tickets,
+                      int t_cap, int H, int Hkv, int nsplit, float scale) {
+  constexpr int DP = D + 1;
+  extern __shared__ __align__(16) float smem[];
   const int rep = H / Hkv;
   float* qs = smem;                // rep x D, pre-scaled queries
   float* ks = qs + MAX_REP * D;    // BK x DP
@@ -113,15 +399,14 @@ __global__ void __launch_bounds__(D)
   const int hk = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int len = min(lengths[b], t_cap);
-  // this split's tokens [t_begin, t_end): a whole number of tiles
-  const int per = ((len + nsplit - 1) / nsplit + BK - 1) / BK * BK;
-  const int t_begin = sp * per, t_end = min(len, t_begin + per);
-  const size_t row = (size_t)Hkv * D;  // elements per cached token
-  const T* kb = k + (size_t)b * t_cap * row + (size_t)hk * D;
-  const T* vb = v + (size_t)b * t_cap * row + (size_t)hk * D;
-  const T* qb = q + ((size_t)b * H + (size_t)hk * rep) * D;
+  int t_begin, t_end;
+  split_range(len, nsplit, sp, t_begin, t_end);
+  const size_t row = (size_t)Hkv * D;
+  const float* kb = k + (size_t)b * t_cap * row + (size_t)hk * D;
+  const float* vb = v + (size_t)b * t_cap * row + (size_t)hk * D;
+  const float* qb = q + ((size_t)b * H + (size_t)hk * rep) * D;
 
-  for (int i = tid; i < rep * D; i += THREADS) qs[i] = to_f(qb[i]) * scale;
+  for (int i = tid; i < rep * D; i += THREADS) qs[i] = qb[i] * scale;
   if (tid < rep) {
     ms[tid] = NEG;
     ls[tid] = 0.f;
@@ -131,38 +416,38 @@ __global__ void __launch_bounds__(D)
 #pragma unroll
   for (int h = 0; h < MAX_REP; ++h) acc[h] = 0.f;
 
-  constexpr int VEC = 16 / sizeof(T);               // elements per load
-  constexpr int CHUNKS = D / VEC;                   // loads per row
+  constexpr int CHUNKS = D / 4;                     // float4 loads per row
   constexpr int ITEMS = BK * CHUNKS / THREADS;      // loads per thread
-  constexpr int BATCH = ITEMS < 8 ? ITEMS : 8;      // loads kept in flight
+  constexpr int BATCH = ITEMS <= 8 ? ITEMS : ITEMS / 2;  // loads in flight
+  static_assert(BK * CHUNKS % THREADS == 0 && ITEMS % BATCH == 0, "tiling");
 
   for (int k0 = t_begin; k0 < t_end; k0 += BK) {
     const int n = min(BK, t_end - k0);  // valid tokens in this tile
     __syncthreads();                    // the previous tile is consumed
 #pragma unroll
     for (int i0 = 0; i0 < ITEMS; i0 += BATCH) {
-      uint4 kr[BATCH], vr[BATCH];
+      float4 kr[BATCH], vr[BATCH];
 #pragma unroll
       for (int j = 0; j < BATCH; ++j) {
         const int i = tid + (i0 + j) * THREADS;
-        const int r = i / CHUNKS, c = (i % CHUNKS) * VEC;
-        kr[j] = make_uint4(0u, 0u, 0u, 0u);
-        vr[j] = make_uint4(0u, 0u, 0u, 0u);
+        const int r = i / CHUNKS, c = (i % CHUNKS) * 4;
+        kr[j] = vr[j] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (r < n) {
           const size_t off = (size_t)(k0 + r) * row + c;
-          kr[j] = *reinterpret_cast<const uint4*>(kb + off);
-          vr[j] = *reinterpret_cast<const uint4*>(vb + off);
+          kr[j] = *reinterpret_cast<const float4*>(kb + off);
+          vr[j] = *reinterpret_cast<const float4*>(vb + off);
         }
       }
 #pragma unroll
       for (int j = 0; j < BATCH; ++j) {
         const int i = tid + (i0 + j) * THREADS;
-        const int r = i / CHUNKS, c = (i % CHUNKS) * VEC;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) {
-          ks[r * DP + c + e] = elem<T>(kr[j], e);
-          vs[r * D + c + e] = elem<T>(vr[j], e);
-        }
+        const int r = i / CHUNKS, c = (i % CHUNKS) * 4;
+        float* kd = ks + r * DP + c;
+        kd[0] = kr[j].x;
+        kd[1] = kr[j].y;
+        kd[2] = kr[j].z;
+        kd[3] = kr[j].w;
+        *reinterpret_cast<float4*>(vs + r * D + c) = vr[j];
       }
     }
     __syncthreads();
@@ -180,8 +465,8 @@ __global__ void __launch_bounds__(D)
       ps[h * BK + c] = s;
     }
     __syncthreads();
-    // online-softmax update: one full warp per query head
-    for (int h = warp; warp < FULL_WARPS && h < rep; h += FULL_WARPS) {
+    // online-softmax update: one warp per query head
+    for (int h = warp; h < rep; h += WARPS) {
       const float s0 = ps[h * BK + lane], s1 = ps[h * BK + lane + 32];
       float mx = fmaxf(s0, s1);
 #pragma unroll
@@ -207,109 +492,91 @@ __global__ void __launch_bounds__(D)
     }
     __syncthreads();
     // acc[h] (channel d = tid) = acc[h] * alpha[h] + sum_c p[h][c] V[c][d]
-#pragma unroll
-    for (int h = 0; h < MAX_REP; ++h)
-      if (h < rep) acc[h] *= as[h];
-    for (int c = 0; c < n; ++c) {
-      const float vv = vs[c * D + tid];
+    if (tid < D) {
 #pragma unroll
       for (int h = 0; h < MAX_REP; ++h)
-        if (h < rep) acc[h] = fmaf(ps[h * BK + c], vv, acc[h]);
-    }
-  }
-  __syncthreads();
-  // an empty split (t_begin >= len) writes max NEG, sum 0, accumulator 0
+        if (h < rep) acc[h] *= as[h];
+      for (int c = 0; c < n; ++c) {
+        const float vv = vs[c * D + tid];
 #pragma unroll
-  for (int h = 0; h < MAX_REP; ++h) {
-    if (h < rep) {
-      const size_t slot = ((size_t)b * H + hk * rep + h) * nsplit + sp;
-      part_acc[slot * D + tid] = acc[h];
-      if (tid == 0) {
-        part_ml[slot * 2] = ms[h];
-        part_ml[slot * 2 + 1] = ls[h];
+        for (int h = 0; h < MAX_REP; ++h)
+          if (h < rep) acc[h] = fmaf(ps[h * BK + c], vv, acc[h]);
       }
     }
   }
-}
-
-// One block per (row, query head), thread d: merge the splits.
-template <int D, typename T>
-__global__ void __launch_bounds__(D)
-    decode_combine_kernel(const float* __restrict__ part_acc,
-                          const float* __restrict__ part_ml,
-                          T* __restrict__ o, int nsplit) {
-  const size_t bh = blockIdx.x;
-  const int d = threadIdx.x;
-  const float* ml = part_ml + bh * nsplit * 2;
-  float m = NEG;
-  for (int s = 0; s < nsplit; ++s) m = fmaxf(m, ml[2 * s]);
-  float l = 0.f, acc = 0.f;
-  for (int s = 0; s < nsplit; ++s) {
-    const float w = expf(ml[2 * s] - m);
-    l = fmaf(ml[2 * s + 1], w, l);
-    acc = fmaf(part_acc[(bh * nsplit + s) * D + d], w, acc);
+  __syncthreads();
+  // the queries and scores are consumed: their space holds the epilogue
+  float* acc_s = qs;   // MAX_REP x D
+  float* wsm = ps;     // MAX_REP x MAX_SPLIT (= MAX_REP x BK)
+  static_assert(MAX_SPLIT <= BK, "split weights fit the score buffer");
+  if (tid < D) {
+#pragma unroll
+    for (int h = 0; h < MAX_REP; ++h)
+      if (h < rep) acc_s[h * D + tid] = acc[h];
   }
-  o[bh * D + d] = from_f<T>(acc / (l == 0.f ? 1.f : l));
-}
-
-template <int D, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* lengths, void* o, void* part_acc,
-                   void* part_ml, int B, int t_cap, int H, int Hkv,
-                   int nsplit, float scale, cudaStream_t stream) {
-  constexpr size_t kSmem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_split_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmem);
-  if (err != cudaSuccess) return err;
-  decode_split_kernel<D, T>
-      <<<dim3(Hkv, B, nsplit), D, kSmem, stream>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const int*>(lengths),
-          static_cast<float*>(part_acc), static_cast<float*>(part_ml), t_cap,
-          H, Hkv, nsplit, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_combine_kernel<D, T><<<B * H, D, 0, stream>>>(
-      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<T*>(o), nsplit);
-  return cudaGetLastError();
+  __syncthreads();
+  finish<D>(acc_s, ms, ls, wsm, as, rep, o, part_acc, part_ml, tickets, H,
+            Hkv, nsplit);
 }
 
 template <int D>
-int launch_dtype(int dtype, const void* q, const void* k, const void* v,
-                 const void* lengths, void* o, void* part_acc, void* part_ml,
-                 int B, int t_cap, int H, int Hkv, int nsplit, float scale,
-                 cudaStream_t s) {
-  if (dtype == 0)
-    return launch<D, float>(q, k, v, lengths, o, part_acc, part_ml, B, t_cap,
-                            H, Hkv, nsplit, scale, s);
-  if (dtype == 1)
-    return launch<D, __nv_bfloat16>(q, k, v, lengths, o, part_acc, part_ml,
-                                    B, t_cap, H, Hkv, nsplit, scale, s);
-  return (int)cudaErrorInvalidValue;
+int launch(int dtype, const void* q, const void* k, const void* v,
+           const void* lengths, void* o, void* part_acc, void* part_ml,
+           void* tickets, int B, int t_cap, int H, int Hkv, int nsplit,
+           float scale, cudaStream_t s) {
+  const dim3 grid(Hkv, B, nsplit);
+  float* pa = static_cast<float*>(part_acc);
+  float* pm = static_cast<float*>(part_ml);
+  int* tk = static_cast<int*>(tickets);
+  const int* lens = static_cast<const int*>(lengths);
+  cudaError_t err;
+  if (dtype == 1) {
+    constexpr size_t smem = MmaSmem<D>::bytes;
+    err = mma::opt_in<decode_mma_kernel<D>>(smem);
+    if (err != cudaSuccess) return (int)err;
+    decode_mma_kernel<D><<<grid, THREADS, smem, s>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), lens, static_cast<bf16*>(o), pa, pm, tk,
+        t_cap, H, Hkv, nsplit, scale);
+  } else if (dtype == 0) {
+    constexpr size_t smem = fma_smem_bytes<D>();
+    err = mma::opt_in<decode_fma_kernel<D>>(smem);
+    if (err != cudaSuccess) return (int)err;
+    decode_fma_kernel<D><<<grid, THREADS, smem, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), lens, static_cast<float*>(o), pa, pm,
+        tk, t_cap, H, Hkv, nsplit, scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim: 64, 112 or 128.  part_acc:
-// float32 (B, H, nsplit, head_dim); part_ml: float32 (B, H, nsplit, 2).
-// Returns the cudaError_t of the launches.
+// dtype: 0 = float32, 1 = bfloat16; head_dim: 64, 112 or 128; rep = H /
+// Hkv <= 16; 1 <= nsplit <= 64.  part_acc: float32 (B, H, nsplit,
+// head_dim) and part_ml: float32 (B, H, nsplit, 2), scratch; tickets:
+// int32 (B, Hkv), zero before the call and zero after it.  Returns the
+// cudaError_t of the launch.
 extern "C" int fa_decode(int dtype, int head_dim, const void* q,
                          const void* k, const void* v, const void* lengths,
-                         void* o, void* part_acc, void* part_ml, int B,
-                         int t_cap, int H, int Hkv, int nsplit, float scale,
-                         void* stream) {
+                         void* o, void* part_acc, void* part_ml,
+                         void* tickets, int B, int t_cap, int H, int Hkv,
+                         int nsplit, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nsplit < 1 || nsplit > MAX_SPLIT || Hkv < 1 || H % Hkv ||
+      H / Hkv > MAX_REP)
+    return (int)cudaErrorInvalidValue;
   if (head_dim == 64)
-    return launch_dtype<64>(dtype, q, k, v, lengths, o, part_acc, part_ml, B,
-                            t_cap, H, Hkv, nsplit, scale, s);
+    return launch<64>(dtype, q, k, v, lengths, o, part_acc, part_ml, tickets,
+                      B, t_cap, H, Hkv, nsplit, scale, s);
   if (head_dim == 112)
-    return launch_dtype<112>(dtype, q, k, v, lengths, o, part_acc, part_ml,
-                             B, t_cap, H, Hkv, nsplit, scale, s);
+    return launch<112>(dtype, q, k, v, lengths, o, part_acc, part_ml,
+                       tickets, B, t_cap, H, Hkv, nsplit, scale, s);
   if (head_dim == 128)
-    return launch_dtype<128>(dtype, q, k, v, lengths, o, part_acc, part_ml,
-                             B, t_cap, H, Hkv, nsplit, scale, s);
+    return launch<128>(dtype, q, k, v, lengths, o, part_acc, part_ml,
+                       tickets, B, t_cap, H, Hkv, nsplit, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -6,13 +6,17 @@ The sources are built at first use by ``repro_torch.kernels.nvcc`` into
 ``_build/`` beside them (never at import).
 
 The wrappers check device, dtype, shape and contiguity, allocate the
-output with ``torch.empty``, launch on PyTorch's current stream without
-synchronising, raise if the launch returned an error, and add one to
-``LAUNCHES[name]`` for each launch.
+output (and K1's split partials) with ``torch.empty``, launch on
+PyTorch's current stream without synchronising, raise if the launch
+returned an error, and add one to ``LAUNCHES[name]`` for each launch.
+K1 merges its splits in the same launch by a per-(row, KV head) ticket:
+its counters are kept zeroed between calls, one buffer per device, so a
+call makes no allocation that needs initialising and no host sync.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from pathlib import Path
 from typing import Dict, Optional
@@ -27,10 +31,15 @@ SOURCES = {"flash_decode": "flash_decode.cu",
            "flash_prefill": "flash_prefill.cu"}
 HEAD_DIMS = (64, 112, 128)
 MAX_REP = 16                     # query heads per KV head (K1)
+MAX_SPLIT = 64                   # KV splits per (row, KV head) (K1)
+DECODE_TILE = 64                 # tokens per K1 tile
+BLOCKS_PER_SM = 1                # K1's split planning target (timed
+                                 # best of 0.5-2 on the H100, PERF.md)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_TICKETS: Dict[torch.device, torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
@@ -56,8 +65,8 @@ def build() -> Dict[str, Path]:
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "flash_decode":
-        lib.fa_decode.argtypes = [I, I, P, P, P, P, P, P, P, I, I, I, I, I,
-                                  F, P]
+        lib.fa_decode.argtypes = [I, I, P, P, P, P, P, P, P, P, I, I, I, I,
+                                  I, F, P]
         lib.fa_decode.restype = I
         lib.fa_decode_error_string.argtypes = [I]
         lib.fa_decode_error_string.restype = ctypes.c_char_p
@@ -93,7 +102,7 @@ def _check_common(name: str, q: torch.Tensor, *others: torch.Tensor):
 
 
 def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
-    """K1 reads rows with 16-byte loads; K2's TMA tensor maps need a
+    """K1 copies K/V rows with 16-byte cp.async; K2's TMA tensor maps need a
     16-byte-aligned base (their strides, D x 2 bytes and up, are multiples
     of 16 at every supported head_dim)."""
     for t in tensors:
@@ -101,11 +110,40 @@ def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensor not 16-byte aligned")
 
 
-def decode_splits(B: int, Hkv: int, T: int, device: torch.device) -> int:
-    """KV splits per (row, KV head) for K1: enough blocks for about two
-    per SM, and no more splits than the cache has 64-token tiles."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-T // 64), -(-2 * sms // (B * Hkv))))
+def decode_splits(B: int, Hkv: int, T: int, sms: int) -> int:
+    """KV splits per (row, KV head) for K1, from the shapes and the SM
+    count alone (never from the lengths, so a decode step stays free of
+    host syncs): enough blocks for about ``BLOCKS_PER_SM`` per SM, no more
+    splits than the cache has tiles, and at most ``MAX_SPLIT``."""
+    tiles = -(-T // DECODE_TILE)
+    want = math.ceil(BLOCKS_PER_SM * sms / (B * Hkv))
+    return max(1, min(tiles, MAX_SPLIT, want))
+
+
+def split_bounds(length: int, nsplit: int):
+    """The token range ``[begin, end)`` of each of the ``nsplit`` splits
+    of a row with ``length`` valid tokens, as the kernel deals them out:
+    runs of ``ceil(tiles / nsplit)`` whole tiles (``split_range`` in
+    ``flash_decode.cu``); a split past the end is empty."""
+    tiles = -(-length // DECODE_TILE)
+    per = -(-tiles // nsplit) * DECODE_TILE
+    return [(sp * per, min(length, sp * per + per)) for sp in range(nsplit)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """K1's split counters for ``device``: int32, zero between calls (the
+    last block of each (row, KV head) sets its counter back to 0), kept
+    from call to call and grown when a call needs more."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -126,20 +164,22 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or lengths.device != q.device or not lengths.is_contiguous():
         raise ValueError("flash_decode: lengths must be a contiguous (B,) "
                          "int32 tensor on q's device")
-    _check_aligned("flash_decode", k, v)
+    _check_aligned("flash_decode", q, k, v)
     lib = _lib("flash_decode")
-    nsplit = decode_splits(B, Hkv, T, q.device)
+    nsplit = decode_splits(B, Hkv, T, _sm_count(q.device.index))
     o = torch.empty_like(q)
     part_acc = torch.empty((B, H, nsplit, D), dtype=torch.float32,
                            device=q.device)
     part_ml = torch.empty((B, H, nsplit, 2), dtype=torch.float32,
                           device=q.device)
+    tickets = _tickets(q.device, B * Hkv)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fa_decode(_DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(),
                             v.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-                            part_acc.data_ptr(), part_ml.data_ptr(), B, T, H,
-                            Hkv, nsplit, 1.0 / math.sqrt(D), stream)
+                            part_acc.data_ptr(), part_ml.data_ptr(),
+                            tickets.data_ptr(), B, T, H, Hkv, nsplit,
+                            1.0 / math.sqrt(D), stream)
     nvcc.raise_on("flash_decode", lib.fa_decode_error_string, err)
     LAUNCHES["flash_decode"] += 1
     return o

@@ -65,9 +65,10 @@ def ssd(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
         chunk: int = CHUNK) -> torch.Tensor:
     """K5.  xh: (B, S, H, 64) float32, contiguous; B_/C_: (B, S, 64)
     float32 or bfloat16 with one set of strides and unit stride along the
-    last axis (views of a wider row are read in place); a_log: (B, S, H)
-    float32; h: (B, H, 64, 64) float32, replaced in place by the final
-    state.  -> y (B, S, H, 64) float32."""
+    last axis (views of a wider row are read in place; in bfloat16 the
+    rows start 16-byte aligned); a_log: (B, S, H) float32; h: (B, H, 64,
+    64) float32, replaced in place by the final state.
+    -> y (B, S, H, 64) float32."""
     if xh.device.type != "cuda":
         raise ValueError(f"ssd: expects CUDA tensors, got {xh.device}")
     if chunk != CHUNK:
@@ -97,6 +98,13 @@ def ssd(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
     for t in (xh, a_log, h):
         if not t.is_contiguous():
             raise ValueError("ssd: xh, a_log and h must be contiguous")
+    if xh.data_ptr() % 16 or h.data_ptr() % 16:
+        raise ValueError("ssd: xh and h must be 16-byte aligned")
+    if B_.dtype == torch.bfloat16 and (
+            B_.data_ptr() % 16 or C_.data_ptr() % 16 or B_.stride(0) % 8
+            or B_.stride(1) % 8):
+        raise ValueError("ssd: bf16 B and C rows must start 16-byte "
+                         "aligned (base and strides)")
     y = torch.empty((Bb, S, H, P), dtype=torch.float32, device=xh.device)
     if "ssd" not in _LIBS:
         build()

@@ -172,3 +172,38 @@ def test_decode_head_dim_64_rep_8_matches_jax(lengths):
                                     interpret=True)
     np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
 
+
+
+# K1's split planning at the three main-path attention shapes (H, Hkv),
+# B 4: llama3-8b, gpt-oss-20b, zamba2-7b
+DECODE_SHAPES = {"llama3-8b": (32, 8), "gpt-oss-20b": (64, 8),
+                 "zamba2-7b": (32, 32)}
+
+
+@pytest.mark.parametrize("T", [1, 63, 64, 1000, 1024])
+@pytest.mark.parametrize("shape", sorted(DECODE_SHAPES))
+def test_decode_splits_hold_whole_tiles_and_cover_the_cache(shape, T):
+    """The split count is a pure function of (B, Hkv, T, SM count): it
+    never exceeds T's tile count (nor MAX_SPLIT), and for every valid
+    length up to T the splits the kernel deals out hold whole tiles (a
+    ragged end only at the row's last token) and cover [0, length)
+    without overlap."""
+    H, Hkv = DECODE_SHAPES[shape]
+    tiles = -(-T // kernel.DECODE_TILE)
+    for sms in (1, 66, 132, 10_000):
+        nsplit = kernel.decode_splits(4, Hkv, T, sms)
+        assert nsplit == kernel.decode_splits(4, Hkv, T, sms)
+        assert 1 <= nsplit <= min(tiles, kernel.MAX_SPLIT)
+        for length in sorted({1, (T + 1) // 2, T}):
+            bounds = kernel.split_bounds(length, nsplit)
+            assert len(bounds) == nsplit
+            covered = 0
+            for begin, end in bounds:
+                if begin >= length:             # an empty split
+                    assert end <= begin
+                    continue
+                assert begin == covered and begin % kernel.DECODE_TILE == 0
+                assert (end - begin) % kernel.DECODE_TILE == 0 \
+                    or end == length
+                covered = end
+            assert covered == length

@@ -70,8 +70,17 @@ def test_include_cycle_and_missing_header_are_harmless(tree):
     assert _name(src, tmp_path) != before
 
 
-@pytest.mark.parametrize("kernel,source", [
-    ("flash_attention", "flash_prefill.cu"), ("moe_gmm", "gmm.cu")])
-def test_wgmma_kernels_depend_on_the_shared_hopper_header(kernel, source):
+@pytest.mark.parametrize("kernel,source,header", [
+    pytest.param("flash_attention", "flash_prefill.cu", "sm90.cuh",
+                 id="flash_attention-flash_prefill.cu"),
+    pytest.param("moe_gmm", "gmm.cu", "sm90.cuh", id="moe_gmm-gmm.cu"),
+    pytest.param("flash_attention", "flash_decode.cu", "mma.cuh",
+                 id="flash_attention-flash_decode.cu-mma.cuh"),
+    pytest.param("mamba2_ssd", "ssd.cu", "mma.cuh",
+                 id="mamba2_ssd-ssd.cu-mma.cuh")])
+def test_wgmma_kernels_depend_on_the_shared_hopper_header(kernel, source,
+                                                          header):
+    """K2 and K3 include the wgmma/TMA header, K1 and K5 the mma.sync /
+    cp.async one: an edit of the header must rebuild them."""
     found = nvcc.sources(REPO_SRC / "kernels" / kernel / "csrc" / source)
-    assert (REPO_SRC / "kernels" / "csrc" / "sm90.cuh").resolve() in found
+    assert (REPO_SRC / "kernels" / "csrc" / header).resolve() in found
