@@ -10,8 +10,8 @@ Phases; any failure raises and the script exits non-zero:
               sources in parallel; count the wgmma (HGMMA) and TMA load
               (UTMALDG) instructions in the machine code of K2 and K3,
               and the mma.sync (HMMA) and cp.async (LDGSTS) instructions
-              in that of K1 and K5 (cuobjdump -sass), and fail if any is
-              missing;
+              in that of K1, K4 and K5 (cuobjdump -sass), and fail if any
+              is missing;
   2. kernels  hold each kernel against its plain PyTorch version on the
               card in fp32 (tight) and bf16 (stated tolerance) at the
               main paths' shapes (K1/K2 at llama3-8b's head_dim 128,
@@ -19,12 +19,12 @@ Phases; any failure raises and the script exits non-zero:
               sliding window; K3 at the decode and the prefill shape, on
               one expert, on ragged tails and on ragged groups at the
               Large path with a depth of 1000; K4
-              at rwkv6-3b's prefill, decode and a ragged length, from a
-              nonzero state; K5 at zamba2-7b's prefill and a ragged
-              length, from a nonzero state), and time kernel, plain
-              version and, where there is one, one PyTorch call of the
-              same function (K5 also at B 1, the shape of every zamba2
-              serve admission);
+              at rwkv6-3b's prefill, decode and a ragged length, and at
+              B 1 with a wide spread of decays, from a nonzero state; K5
+              at zamba2-7b's prefill and a ragged length, from a nonzero
+              state), and time kernel, plain version and, where there is
+              one, one PyTorch call of the same function (K4 and K5 also
+              at B 1, the shape of every recurrent serve admission);
   3. llama    full-width llama3-8b in bf16 (random weights from a seeded
               generator): one right-padded prefill and 8 decode steps
               through the kernels, each step under
@@ -119,10 +119,12 @@ GMM_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
 # the layers; in fp32 they are summation-order differences.
 MODEL_RTOL = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
 # K4 vs plain: both convert the same r, k, v (fp32, or bf16 read exactly
-# into fp32) and sum 64 products per output in another order (four
-# partial sums in the kernel, cuBLAS in the plain einsum), and round the
-# state update once (fma) where the plain version rounds twice: fp32
-# summation-order error, about 1e-6 of outputs of size ~10, in either
+# into fp32).  The recurrence path sums 64 products per output in another
+# order than the plain einsum and rounds the state update once (fma); the
+# chunked path forms the same sums as products on TF32 tensor cores with
+# each fp32 operand split into hi + lo (3xTF32, about 2^-22 of each
+# operand), in steps of 16 tokens, with the decays as products of w: fp32
+# summation-order error, a few 1e-6 of outputs of size ~10, in either
 # input dtype.
 WKV_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-5, 1e-5)}
 # K5 vs plain: the in-chunk prefix sums of a_log reach ~100 at the
@@ -158,7 +160,7 @@ REPLACES = {"flash_decode": "src/repro/kernels/flash_attention/kernel.py:188",
 # libraries whose kernels must run on wgmma fed by TMA, and those whose
 # bf16 paths must run on mma.sync fed by cp.async (phase 1)
 WGMMA_TMA_LIBS = ("flash_prefill", "gmm")
-MMA_CPASYNC_LIBS = ("flash_decode", "ssd")
+MMA_CPASYNC_LIBS = ("flash_decode", "wkv", "ssd")
 FA_SRC = "src/repro_torch/kernels/flash_attention/csrc/"
 GMM_SRC = "src/repro_torch/kernels/moe_gmm/csrc/gmm.cu"
 WKV_SRC = "src/repro_torch/kernels/rwkv6/csrc/wkv.cu"
@@ -233,8 +235,8 @@ def phase_build(nvcc, kernels) -> None:
             if "registers" in line or "spill" in line or "C75" in line:
                 log(f"[build] {name}: {line.strip()}")
     # K2 and K3's Large path run on wgmma (SASS HGMMA) fed by TMA
-    # (UTMALDG); K1's and K5's bf16 paths on mma.sync (HMMA) fed by
-    # cp.async (LDGSTS)
+    # (UTMALDG); K1's and K5's bf16 paths and K4's chunked path on
+    # mma.sync (HMMA) fed by cp.async (LDGSTS)
     for names, ops in ((WGMMA_TMA_LIBS, ("HGMMA", "UTMALDG")),
                        (MMA_CPASYNC_LIBS, ("HMMA", "LDGSTS"))):
         for name in names:
@@ -466,24 +468,30 @@ def check_and_time_gmm(g, GK, GR, d=2880, f=2880, E=32) -> list:
     return rows
 
 
-def wkv_inputs(g, dtype, S, Bn=B):
+def wkv_inputs(g, dtype, S, Bn=B, wide=False):
     """r, k, v (x 0.5) in ``dtype``; the model's decays w = exp(-exp(ww))
-    with ww near its w0 of -2; a bonus u and a nonzero state, fp32."""
+    with ww near its w0 of -2, or (``wide``) ww uniform in [-6, 2], so w
+    from about 6e-4 to 0.9975, where a decay over a few dozen tokens
+    underflows; a bonus u and a nonzero state, fp32."""
     H, P, f32 = *RWKV_SHAPE, torch.float32
     r, k, v = ((randn(g, Bn, S, H, P, dtype=f32) * 0.5).to(dtype)
                for _ in range(3))
-    w = torch.exp(-torch.exp(randn(g, Bn, S, H, P, dtype=f32) * 0.5 - 2.0))
-    return (r, k, v, w, randn(g, H, P, dtype=f32) * 0.1,
+    if wide:
+        ww = torch.rand(Bn, S, H, P, generator=g, device=DEV) * 8.0 - 6.0
+    else:
+        ww = randn(g, Bn, S, H, P, dtype=f32) * 0.5 - 2.0
+    return (r, k, v, torch.exp(-torch.exp(ww)),
+            randn(g, H, P, dtype=f32) * 0.1,
             randn(g, Bn, H, P, P, dtype=f32) * 0.1)
 
 
-def wkv_bound(S: int, es: int) -> dict:
+def wkv_bound(S: int, es: int, Bn: int = B) -> dict:
     """Bytes: r, k, v (es each), w and y (fp32) per channel and token, the
     state in and out, u.  Operations: 4 P per channel and token (the
     read-out and the update), at the fp32 rate."""
     H, P = RWKV_SHAPE
-    tok = B * S * H * P
-    return bound(tok * (3 * es + 8) + 2 * B * H * P * P * 4 + H * P * 4,
+    tok = Bn * S * H * P
+    return bound(tok * (3 * es + 8) + 2 * Bn * H * P * P * 4 + H * P * 4,
                  4 * tok * P, torch.float32)
 
 
@@ -491,30 +499,40 @@ def check_and_time_wkv(g, WK, WR) -> list:
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
-        for S, Bn in ((PROMPT, B), (1, B), (37, B), (200, 1)):
-            r, k, v, w, u, s0 = wkv_inputs(g, dtype, S, Bn)
+        # S 1: the recurrence path; the rest the chunked path, at B 1 in
+        # segments with a grid barrier between their two passes
+        for S, Bn, wide in ((PROMPT, B, False), (1, B, False),
+                            (37, B, False), (200, 1, False),
+                            (PROMPT, 1, True)):
+            r, k, v, w, u, s0 = wkv_inputs(g, dtype, S, Bn, wide)
             sk, sp = s0.clone(), s0.clone()
-            what = f"K4 {tag} B={Bn} S={S} H={RWKV_SHAPE[0]}"
+            what = (f"K4 {tag} B={Bn} S={S} H={RWKV_SHAPE[0]}"
+                    + (" decays 6e-4..0.9975" if wide else ""))
             e = max(check(what + " y", WK.wkv(r, k, v, w, u, sk),
                           WR.wkv(r, k, v, w, u, sp), WKV_TOL[dtype]),
                     check(what + " state", sk, sp, WKV_TOL[dtype]))
             log(f"[kernels] {what} (nonzero state): max abs err {e:.3e}")
-            if dtype == torch.bfloat16 and S in (PROMPT, 1):
-                errs[S] = e
+            if dtype == torch.bfloat16:
+                errs[S, Bn] = max(errs.get((S, Bn), 0.0), e)
     rows, dt = [], torch.bfloat16
-    for name, S, n_sets in (("wkv_prefill", PROMPT, 3), ("wkv_decode", 1, 24)):
-        # decode: 24 states of 2.6 MB, so launches do not reuse L2
-        sets = [wkv_inputs(g, dt, S) for _ in range(n_sets)]
+    # B 4: the model check's prefill and decode; B 1: every rwkv6 serve
+    # admission (exact-length groups).  3, 8 or 24 input sets of 76, 20
+    # or 2.7 MB, so that launches do not reuse L2
+    for name, S, Bn, n_sets in (("wkv_prefill", PROMPT, B, 3),
+                                ("wkv_prefill_b1", PROMPT, 1, 8),
+                                ("wkv_decode", 1, B, 24)):
+        sets = [wkv_inputs(g, dt, S, Bn) for _ in range(n_sets)]
         row = {"name": name, "route": "cuda", "source": WKV_SRC,
                "replaces": REPLACES["wkv"], "launches": 0,
-               "max_abs_err": errs[S], "ms": time_ms(WK.wkv, sets),
+               "max_abs_err": errs[S, Bn], "ms": time_ms(WK.wkv, sets),
                "plain_ms": time_ms(WR.wkv, sets, iters=3 if S > 1 else 10),
-               **wkv_bound(S, 2), "library_ms": None}
-        log(f"[kernels] {name} bf16 B={B} S={S} H={RWKV_SHAPE[0]} P=64 "
+               **wkv_bound(S, 2, Bn), "library_ms": None}
+        log(f"[kernels] {name} bf16 B={Bn} S={S} H={RWKV_SHAPE[0]} P=64 "
             f"timing: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}"
             f" ms, no library call, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']})")
         rows.append(row)
+        del sets
     return rows
 
 
@@ -916,6 +934,7 @@ SERVE_ROWS = {
             ("gmm_prefill", "gmm", "prefill"),
             ("gmm_decode", "gmm", "decode")],
     "ssm": [("wkv_prefill", "wkv", "prefill"),
+            ("wkv_prefill_b1", "wkv", "prefill"),
             ("wkv_decode", "wkv", "decode")],
     "hybrid": [("flash_decode_d112", "flash_decode", "decode"),
                ("flash_prefill_d112", "flash_prefill", "prefill"),

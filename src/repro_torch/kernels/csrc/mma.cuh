@@ -1,7 +1,7 @@
 /*
  * Warp-level tensor-core and async-copy building blocks shared by the
- * port's mma.sync kernels: K1 (flash_attention/csrc/flash_decode.cu) and
- * K5 (mamba2_ssd/csrc/ssd.cu).  Included by a quoted relative path, so an
+ * port's mma.sync kernels: K1 (flash_attention/csrc/flash_decode.cu), K4
+ * (rwkv6/csrc/wkv.cu) and K5 (mamba2_ssd/csrc/ssd.cu).  Included by a quoted relative path, so an
  * edit here changes the hash of every library that includes it (nvcc.py)
  * and rebuilds them.
  *

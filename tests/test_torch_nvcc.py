@@ -77,10 +77,12 @@ def test_include_cycle_and_missing_header_are_harmless(tree):
     pytest.param("flash_attention", "flash_decode.cu", "mma.cuh",
                  id="flash_attention-flash_decode.cu-mma.cuh"),
     pytest.param("mamba2_ssd", "ssd.cu", "mma.cuh",
-                 id="mamba2_ssd-ssd.cu-mma.cuh")])
+                 id="mamba2_ssd-ssd.cu-mma.cuh"),
+    pytest.param("rwkv6", "wkv.cu", "mma.cuh",
+                 id="rwkv6-wkv.cu-mma.cuh")])
 def test_wgmma_kernels_depend_on_the_shared_hopper_header(kernel, source,
                                                           header):
-    """K2 and K3 include the wgmma/TMA header, K1 and K5 the mma.sync /
-    cp.async one: an edit of the header must rebuild them."""
+    """K2 and K3 include the wgmma/TMA header, K1, K4 and K5 the
+    mma.sync / cp.async one: an edit of the header must rebuild them."""
     found = nvcc.sources(REPO_SRC / "kernels" / kernel / "csrc" / source)
     assert (REPO_SRC / "kernels" / "csrc" / header).resolve() in found
