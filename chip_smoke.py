@@ -58,7 +58,23 @@ Phases; any failure raises and the script exits non-zero:
               prompt of 300 ends in a ragged chunk); then the serving
               run, with K1 = 27 per decode step, K2 = 27 per admission and
               K5 = 81 per admission of a prompt longer than one token;
-  8. card     the card's name and power limit from nvidia-smi.
+  8. tessera  the Tessera core on the decode step at full width (bf16, B
+              4, max_len 1024): the step of all four models traced with
+              torch.export (kernel op nodes = launches per step: 32 K1;
+              24 K1 + 72 K3; 32 K4; 27 K1); llama3-8b and gpt-oss-20b
+              planned for the H100 + RTX Pro 6000 pair under both
+              policies and executed on two logical devices of this card
+              (a stream each) and fused on one: 8 decode steps from one
+              prefilled cache, no host sync, logits bit-identical to the
+              eager step and the same launches, less than 1 GiB allocated
+              by building the executables; gpt-oss-20b served through
+              the online monitor's executable with the eager engine's
+              greedy tokens; the pipelined runner on two streams of the
+              card with straggler deadlines, which must fire on a unit's
+              completion (not its issue) and rerun it on a fallback
+              stream with the eager result.  Phase 2 also runs K1 and K4
+              (B 1) twice at once on two unordered streams;
+  9. card     the card's name and power limit from nvidia-smi.
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -597,6 +613,57 @@ def check_and_time_ssd(g, SK, SR) -> list:
 
 
 # --------------------------------------------------------------------- #
+# 2b. K1 and K4 on two streams at once
+# --------------------------------------------------------------------- #
+TWO_STREAM_ROUNDS = 20
+
+
+def check_two_streams(g, FK, FR, WK, WR) -> None:
+    """Two calls of K1 (different inputs) on two streams with no ordering
+    between them, and the same for K4 at B 1 (its segmented path, whose
+    grid barrier counts the blocks of its own launch), each held against
+    its plain version: K1's split tickets and K4's barrier counters are
+    kept per (device, stream), so launches in flight at once never share
+    them.  ``TWO_STREAM_ROUNDS`` rounds, queued behind a device sleep on
+    each stream so the two launches can overlap."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    current = torch.cuda.current_stream()
+    for what, tol, make, kern, plain, state in (
+            ("K1 bf16 llama3-8b decode", TOL[torch.bfloat16],
+             lambda: decode_inputs(g, torch.bfloat16, [PROMPT, 300, 77, 5],
+                                   LLAMA_ATTN),
+             FK.flash_decode, FR.decode_attention, None),
+            ("K4 bf16 B=1 S=512 (segments)", WKV_TOL[torch.bfloat16],
+             lambda: wkv_inputs(g, torch.bfloat16, PROMPT, 1),
+             WK.wkv, WR.wkv, 5)):
+        worst = 0.0
+        for _ in range(TWO_STREAM_ROUNDS):
+            ins = [make(), make()]
+            plain_ins = [[x.clone() if i == state else x
+                          for i, x in enumerate(a)] for a in ins]
+            outs = [None, None]
+            for j, st in enumerate(streams):
+                st.wait_stream(current)
+            for j, st in enumerate(streams):
+                with torch.cuda.stream(st):
+                    torch.cuda._sleep(2_000_000)
+                    outs[j] = kern(*ins[j])
+            for st in streams:
+                current.wait_stream(st)
+            for j in range(2):
+                want = plain(*plain_ins[j])
+                worst = max(worst, check(f"{what} stream {j}", outs[j],
+                                         want, tol))
+                if state is not None:
+                    worst = max(worst, check(f"{what} stream {j} state",
+                                             ins[j][state],
+                                             plain_ins[j][state], tol))
+        log(f"[kernels] {what}: {TWO_STREAM_ROUNDS} rounds of two calls on "
+            f"two unordered streams, each against its plain version: max "
+            f"abs err {worst:.3e}")
+
+
+# --------------------------------------------------------------------- #
 # 3-7. models
 # --------------------------------------------------------------------- #
 KERNEL_NAMES = ("flash_decode", "flash_prefill", "gmm", "wkv", "ssd")
@@ -1011,6 +1078,339 @@ def phase_serve(cfg, params, k) -> dict:
             for row, c, where in rows}
 
 
+# --------------------------------------------------------------------- #
+# 8. tessera: the core on the decode step
+# --------------------------------------------------------------------- #
+TESSERA_ARCHS = ("llama3_8b", "gpt_oss_20b", "rwkv6_3b", "zamba2_7b")
+TESSERA_RUN = ("llama3_8b", "gpt_oss_20b")     # planned and executed
+MAX_BUILD_GROWTH = 2 ** 30                     # bytes
+TESSERA_ROUNDS = 3                             # timing rounds per variant
+
+
+def kernel_nodes(traced) -> dict:
+    """Op nodes of the hand-written kernels in a traced step, by kernel."""
+    out = {}
+    for n in traced.eqns:
+        if getattr(n.target, "namespace", "") == "repro_torch":
+            name = n.target._overloadpacket.__name__.split(".")[-1]
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def trace_counts(cfg, traced, what: str) -> None:
+    expect = {n: v for n, v in expected_launches(cfg, 1, 0, 0).items() if v}
+    found = kernel_nodes(traced)
+    log(f"[tessera] {cfg.name} full width {cfg.dtype}, B {B}, max_len "
+        f"{MAX_LEN}: decode step traced ({what}): graph {traced.graph.stats()}"
+        f", kernel op nodes {found}")
+    if found != expect:
+        raise AssertionError(f"{cfg.name}: kernel op nodes {found} != the "
+                             f"launches of a decode step {expect}")
+
+
+def phase_tessera(configs, k) -> None:
+    """Trace the decode step of the four models at full width; plan
+    llama3-8b and gpt-oss-20b for the GPU pair under both policies and
+    execute them on two logical devices of this card (a stream each) and
+    fused on one, against the eager step; serve gpt-oss-20b through the
+    online monitor's choice of executable, against the eager engine."""
+    from repro_torch.core import analyzer
+    from repro_torch.core.executor import LogicalDevice, build_executable
+    from repro_torch.core.monitor import MonitorConfig, OnlineMonitor
+    from repro_torch.launch.serve import PLAN_PAIR, plan_decode
+    M = k.M
+    meta = torch.device("meta")
+    for name in TESSERA_ARCHS:
+        if name in TESSERA_RUN:
+            continue
+        cfg = configs.get(name)
+        t = time.perf_counter()
+        traced = analyzer.analyze(
+            lambda p, c, t_, q, cfg=cfg: M.decode_step(p, cfg, t_, c, q,
+                                                       tagged=True),
+            M.init_params(cfg, device=meta),
+            M.init_cache(cfg, B, MAX_LEN, device=meta),
+            torch.zeros((B, 1), dtype=torch.int32, device=meta),
+            torch.zeros(B, dtype=torch.int32, device=meta),
+            state_argnums=(1,))
+        trace_counts(cfg, traced, f"on meta tensors in "
+                     f"{time.perf_counter() - t:.1f} s")
+    for name in TESSERA_RUN:
+        cfg = configs.get(name)
+        params = init_params(M, cfg)
+        dev = torch.device(DEV, torch.cuda.current_device())
+        t = time.perf_counter()
+        core = plan_decode(cfg, params, B, MAX_LEN, dev)
+        traced, plans = core["traced"], core["plans"]
+        trace_counts(cfg, traced, f"and planned in "
+                     f"{time.perf_counter() - t:.1f} s")
+        for pol, p in plans.items():
+            log(f"[tessera] {cfg.name} {pol} plan for {'+'.join(PLAN_PAIR)} "
+                f"(modeled, not measured): {p.summary()}, bottleneck "
+                f"{p.bottleneck * 1e3:.3f} ms")
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        lds = [LogicalDevice(dev, torch.cuda.Stream(dev), name=f"cuda/{i}")
+               for i in range(2)]
+        one = LogicalDevice(dev, torch.cuda.Stream(dev), name="cuda/fused")
+        t = time.perf_counter()
+        exes = {pol: build_executable(traced, p, lds)
+                for pol, p in plans.items()}
+        exes["throughput, fused"] = build_executable(
+            traced, plans["throughput"], [one, one])
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - mem0
+        log(f"[tessera] {cfg.name}: 3 executables built in "
+            f"{time.perf_counter() - t:.1f} s ("
+            + ", ".join(f"{pol}: {e.num_units} dispatch units"
+                        for pol, e in exes.items())
+            + f"), memory_allocated grew by {grown / 2**20:.1f} MiB, "
+            f"{sum(e.weight_places for e in exes.values())} weight copies")
+        if grown >= MAX_BUILD_GROWTH:
+            raise AssertionError(f"{cfg.name}: building the executables "
+                                 f"allocated {grown} bytes")
+        tessera_steps(cfg, params, k, exes)
+        if cfg.family == "moe":
+            tessera_serve(cfg, params, k, exes, MonitorConfig, OnlineMonitor)
+        free(params)
+        del core, traced, exes
+        torch.cuda.empty_cache()
+    tessera_pipeline()
+
+
+def tessera_steps(cfg, params, k, exes) -> None:
+    """From one prefilled cache, DECODE_STEPS decode steps through each
+    executable and through the eager step, every step under
+    set_sync_debug_mode("error"): the logits must be bit-identical (the
+    same ops and kernels in the same order) and the launches equal."""
+    M = k.M
+    rng = np.random.default_rng(0)
+    lens = np.asarray([PROMPT, 300, 77, 5])
+    toks = np.zeros((B, PROMPT), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    dev = torch.device(DEV)
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        B, DECODE_STEPS)).astype(np.int32)).to(dev)
+    cache0 = M.init_cache(cfg, B, MAX_LEN, device=dev)
+    M.prefill(params, cfg, torch.from_numpy(toks).to(dev), cache0,
+              last_pos=torch.from_numpy((lens - 1).astype(np.int32)).to(dev))
+
+    def eager(p, c, t, q):
+        return M.decode_step(p, cfg, t, c, q)
+
+    def run(fn):
+        """Logits of each step, its wall time (ms, after a synchronise)
+        and the host time it took to queue its work."""
+        cache = {part: {n: v.clone() for n, v in leaves.items()}
+                 for part, leaves in cache0.items()}
+        pos = torch.from_numpy(lens.astype(np.int32)).to(dev)
+        outs, wall, enq, cpu = [], [], [], []
+        torch.cuda.synchronize()
+        for i in range(DECODE_STEPS):
+            t, c = time.perf_counter(), time.thread_time()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                logits, cache = fn(params, cache, steps[:, i:i + 1], pos)
+                outs.append(logits)
+                pos = pos + 1
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            enq.append((time.perf_counter() - t) * 1e3)
+            cpu.append((time.thread_time() - c) * 1e3)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t) * 1e3)
+        return outs, wall, enq, cpu
+
+    def eager_tagged(p, c, t, q):
+        return M.decode_step(p, cfg, t, c, q, tagged=True)
+
+    # the tagged eager step: what entering the marker regions costs
+    fns = {"eager": eager, "eager, tagged": eager_tagged, **exes}
+    for fn in fns.values():                    # first calls: allocator
+        run(fn)
+    results = {}
+    for label, fn in fns.items():
+        reset_counts(k)
+        outs, _, _, _ = run(fn)
+        results[label] = (outs, counts(k))
+    want, n_e = results["eager"]
+    expect = expected_launches(cfg, DECODE_STEPS, 0, 0)
+    if n_e != expect:
+        raise AssertionError(f"{cfg.name}: eager launches {n_e} != {expect}")
+    # host-clock times vary run to run: TESSERA_ROUNDS rounds, the
+    # variants alternating, medians over every step of every round
+    walls = {label: [] for label in fns}
+    enqs = {label: [] for label in fns}
+    cpus = {label: [] for label in fns}
+    for _ in range(TESSERA_ROUNDS):
+        for label, fn in fns.items():
+            _, wall, enq, cpu = run(fn)
+            walls[label] += wall
+            enqs[label] += enq
+            cpus[label] += cpu
+    for label, (outs, n) in results.items():
+        same = all(torch.equal(a, b) for a, b in zip(outs, want))
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(outs, want))
+        units = exes[label].num_units if label in exes else "-"
+        log(f"[tessera] {cfg.name} {label} ({units} dispatch units): "
+            f"{DECODE_STEPS} decode steps (no host sync), logits "
+            f"bit-identical to the eager step: {same} (max abs diff "
+            f"{err:.3e}), launches {n}; over {TESSERA_ROUNDS} x "
+            f"{DECODE_STEPS} steps, alternating: step wall median "
+            f"{float(np.median(walls[label])):.2f} ms (min "
+            f"{min(walls[label]):.2f}, max {max(walls[label]):.2f}), host "
+            f"queueing median {float(np.median(enqs[label])):.2f} ms, of "
+            f"which the thread's own CPU time "
+            f"{float(np.median(cpus[label])):.2f} ms")
+        if not same or n != n_e:
+            raise AssertionError(f"{cfg.name} {label}: logits differ "
+                                 f"({err:.3e}) or launches {n} != {n_e}")
+
+
+def tessera_serve(cfg, params, k, exes, MonitorConfig, OnlineMonitor) -> None:
+    """The requests of phase_serve (arrivals at 0, so every run batches
+    alike) through the eager engine and through the engine whose decode
+    step is ``exes[monitor.policy]``, twice each: every request
+    completes, the greedy tokens agree and the launches match the steps
+    and admissions."""
+    from repro_torch.serving.engine import ServingEngine, requests_from_trace
+    from repro_torch.serving.workload import make_trace
+    trace = make_trace("poisson", RATE, N_REQUESTS, seed=0)
+    monitor = OnlineMonitor(MonitorConfig(window=0.5, beta=1.5))
+
+    def decode_fn(p, c, t, q):
+        return exes[monitor.policy](p, c, t, q)
+
+    tokens = []
+    # eager, executor, executor, eager: the monitor's first window moves
+    # it to its second policy between the two executor runs
+    for label, fn in (("eager", None), ("executor", decode_fn),
+                      ("executor", decode_fn), ("eager", None)):
+        policy = monitor.policy if fn is not None else "-"
+        reqs = requests_from_trace(trace, cfg.vocab_size,
+                                   max_prompt=MAX_LEN // 2, max_new=MAX_NEW,
+                                   time_scale=0.0)
+        engine = ServingEngine(cfg, params, slots=B, max_len=MAX_LEN,
+                               decode_fn=fn, device=DEV)
+        engine.warmup()
+        reset_counts(k)
+        t = time.perf_counter()
+        stats = engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = counts(k)
+        expect = expected_launches(cfg, stats.decode_steps,
+                                   stats.prefill_batches,
+                                   stats.prefill_batches)
+        if stats.completed != len(reqs) or launches != expect or any(
+                len(r.output) != r.max_new_tokens for r in reqs):
+            raise AssertionError(f"tessera serve ({label}): completed "
+                                 f"{stats.completed}/{len(reqs)}, launches "
+                                 f"{launches} vs {expect}")
+        if label == "executor":
+            for r in reqs:
+                lat = r.finished - r.arrival
+                monitor.record_request(r.finished, lat, lat * 0.5)
+            monitor.tick(wall + 1.0)
+        s = stats.summary()
+        decode_tokens = sum(len(r.output) - 1 for r in reqs)
+        log(f"[tessera] serve {cfg.name} {label} (policy {policy}): "
+            f"{len(reqs)} requests "
+            f"(arrivals at 0), mean TTFT {s['mean_ttft']:.4f} s, mean TPOT "
+            f"{s['mean_tpot']:.4f} s, decode tokens/s "
+            f"{decode_tokens / wall:.1f} ({decode_tokens} in {wall:.3f} s), "
+            f"{stats.decode_steps} decode steps, launches {launches}")
+        tokens.append([r.output for r in reqs])
+    if any(t != tokens[0] for t in tokens):
+        raise AssertionError("tessera serve: greedy tokens differ between "
+                             "the eager and the executor engine")
+    log(f"[tessera] serve {cfg.name}: greedy tokens identical; monitor "
+        f"policy {monitor.policy}, switches {monitor.switches}")
+
+
+PIPE_DIM = 8192                                # runner check: a chain of
+PIPE_DEPTH = 48                                # tanh(x @ w), bf16
+PIPE_REQUESTS = 3
+
+
+def tessera_pipeline() -> None:
+    """The pipelined runner on the card, with straggler deadlines.  A
+    chain of PIPE_DEPTH bf16 matmuls takes tens of ms on the card and
+    about a ms to issue: fused into one unit with a deadline of a quarter
+    of its device time, every request's unit must miss it (the deadline
+    is on completion, not issue) and be rerun on a fallback stream; with
+    a deadline of 60 s none may.  Planned for the GPU pair under
+    ``throughput`` (two logical devices, a stream each), a deadline of
+    1e-9 s reruns every unit on the fallback stream while its first try
+    still runs.  Every output must equal the eager chain."""
+    from repro_torch.core import analyzer, planner
+    from repro_torch.core.costmodel import CATALOG
+    from repro_torch.core.executor import (LogicalDevice, build_executable,
+                                           logical_devices)
+    from repro_torch.core.pipeline import PipelinedRunner
+    from repro_torch.launch.serve import PLAN_PAIR
+
+    def chain(x, w):
+        for _ in range(PIPE_DEPTH):
+            x = torch.tanh(x @ w)
+        return x
+
+    g = torch.Generator(device=DEV)
+    g.manual_seed(1)
+    w = randn(g, PIPE_DIM, PIPE_DIM, dtype=torch.bfloat16) * PIPE_DIM ** -0.5
+    xs = [randn(g, PIPE_DIM, PIPE_DIM, dtype=torch.bfloat16)
+          for _ in range(PIPE_REQUESTS)]
+    want = [chain(x, w) for x in xs]
+    traced = analyzer.analyze(chain, xs[0], w)
+    plan = planner.plan(traced.graph, [CATALOG[d] for d in PLAN_PAIR],
+                        policy="throughput", cache=False)
+    dev = torch.device(DEV, torch.cuda.current_device())
+    one = LogicalDevice(dev, torch.cuda.Stream(dev), name="cuda/fused")
+    fused = build_executable(traced, plan, [one, one])
+    split = build_executable(traced, plan, logical_devices(2, dev))
+    fallback = LogicalDevice(dev, torch.cuda.Stream(dev), name="cuda/fallback")
+    fused(xs[0], w)                            # first call: allocator
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fused(xs[0], w)
+    issue = time.perf_counter() - t
+    torch.cuda.synchronize()
+    device = time.perf_counter() - t
+    deadline = device / 4
+    log(f"[tessera] runner: {PIPE_DEPTH} x tanh(x @ w) at {PIPE_DIM}, bf16, "
+        f"fused into {fused.num_units} unit: issued in {issue * 1e3:.2f} ms, "
+        f"done in {device * 1e3:.2f} ms; {plan.summary()} -> "
+        f"{split.num_units} units on two streams")
+    if fused.num_units != 1 or split.num_units < 2 or deadline < 3 * issue:
+        raise AssertionError("runner check: the chain does not separate "
+                             "issue from completion, or the plan has one "
+                             "unit")
+    cases = (("fused", fused, deadline, PIPE_REQUESTS),
+             ("fused", fused, 60.0, 0),
+             ("two streams", split, 1e-9, None))
+    for label, exe, limit, reruns in cases:
+        runner = PipelinedRunner(exe, max_inflight=PIPE_REQUESTS,
+                                 straggler_deadline=limit,
+                                 fallback_device=fallback)
+        outs, stats = runner.run([((x, w), {}) for x in xs])
+        torch.cuda.synchronize()
+        errs = [check(f"runner {label}", o, e, TOL[torch.bfloat16])
+                for o, e in zip(outs, want)]
+        same = all(torch.equal(o, e) for o, e in zip(outs, want))
+        log(f"[tessera] runner {label}, deadline {limit * 1e3:.6g} ms: "
+            f"{stats.completed} requests, {stats.stage_dispatches} units "
+            f"issued, {stats.straggler_reexecs} straggler reruns, outputs "
+            f"bit-identical to the eager chain: {same} (max abs err "
+            f"{max(errs):.3e})")
+        if stats.completed != PIPE_REQUESTS or (
+                reruns is not None and stats.straggler_reexecs != reruns) \
+                or (reruns is None and stats.straggler_reexecs < 1):
+            raise AssertionError(f"runner {label}: {stats.straggler_reexecs}"
+                                 f" straggler reruns, expected {reruns}")
+
+
 def init_params(M, cfg):
     g = torch.Generator(device=DEV)
     g.manual_seed(0)
@@ -1056,6 +1456,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    import torch.fx.traceback as fx_traceback
+    if not hasattr(fx_traceback, "annotate"):
+        raise AssertionError(f"torch {torch.__version__} has no "
+                             "torch.fx.traceback.annotate (the analyzer's "
+                             "block and layer tags)")
 
     phase_build(nvcc, k.kernels)
     log_phase("build")
@@ -1064,6 +1469,7 @@ def main() -> int:
     errs = check_attention(g, FK, FR)
     rows = time_attention(g, FK, FR, errs) + check_and_time_gmm(g, GK, GR)
     rows += check_and_time_wkv(g, WK, WR) + check_and_time_ssd(g, SK, SR)
+    check_two_streams(g, FK, FR, WK, WR)
     log_phase("kernels")
     launches = {}
 
@@ -1098,6 +1504,9 @@ def main() -> int:
     zamba = configs.get("zamba2_7b")
     served(zamba, [PROMPT] * B,
            first=(dataclasses.replace(zamba, dtype="float32"), [300] * B))
+
+    phase_tessera(configs, k)
+    log_phase("tessera")
 
     for row in rows:
         row["launches"] = launches[row["name"]]

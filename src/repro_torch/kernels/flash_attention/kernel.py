@@ -10,8 +10,9 @@ output (and K1's split partials) with ``torch.empty``, launch on
 PyTorch's current stream without synchronising, raise if the launch
 returned an error, and add one to ``LAUNCHES[name]`` for each launch.
 K1 merges its splits in the same launch by a per-(row, KV head) ticket:
-its counters are kept zeroed between calls, one buffer per device, so a
-call makes no allocation that needs initialising and no host sync.
+its counters are kept zeroed between calls, one buffer per (device,
+stream), so a call makes no allocation that needs initialising and no
+host sync, and two launches in flight on two streams never share one.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import ctypes
 import functools
 import math
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -39,7 +40,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_TICKETS: Dict[torch.device, torch.Tensor] = {}
+_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
@@ -135,14 +136,19 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """K1's split counters for ``device``: int32, zero between calls (the
-    last block of each (row, KV head) sets its counter back to 0), kept
-    from call to call and grown when a call needs more."""
-    t = _TICKETS.get(device)
+def _tickets(device: torch.device, stream: torch.cuda.Stream,
+             n: int) -> torch.Tensor:
+    """K1's split counters for launches on ``stream`` of ``device``:
+    int32, zero between calls (the last block of each (row, KV head) sets
+    its counter back to 0), kept from call to call and grown when a call
+    needs more.  Launches on one stream run one after another, so they
+    may share a buffer; launches on two streams may overlap, so each
+    stream has its own."""
+    key = (device, stream.stream_id)
+    t = _TICKETS.get(key)
     if t is None or t.numel() < n:
         t = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
-        _TICKETS[device] = t
+        _TICKETS[key] = t
     return t
 
 
@@ -172,9 +178,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            device=q.device)
     part_ml = torch.empty((B, H, nsplit, 2), dtype=torch.float32,
                           device=q.device)
-    tickets = _tickets(q.device, B * Hkv)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+        current = torch.cuda.current_stream(q.device)
+        tickets = _tickets(q.device, current, B * Hkv)
+        stream = current.cuda_stream
         err = lib.fa_decode(_DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(),
                             v.data_ptr(), lengths.data_ptr(), o.data_ptr(),
                             part_acc.data_ptr(), part_ml.data_ptr(),

@@ -1,5 +1,6 @@
-"""Dispatch for flash attention: a CPU tensor takes the plain PyTorch
-version (``ref``), any other tensor the hand-written kernel
+"""Flash attention as two custom ops, ``repro_torch::flash_decode`` (K1)
+and ``repro_torch::flash_prefill`` (K2): a CPU tensor takes the plain
+PyTorch version (``ref``), any other tensor the hand-written kernel
 (``kernel``), which raises on what it does not take.  There is no
 fallback from the kernel to the plain version."""
 from __future__ import annotations
@@ -8,7 +9,35 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import library
 from repro_torch.kernels.flash_attention import kernel, ref
+
+
+def _prefill_kernel(q, k, v, q_offset, window):
+    return kernel.flash_prefill(q, k, v, q_offset=q_offset, window=window)
+
+
+# the plain versions' outputs are made contiguous, as the kernels' are
+# (and as the fake implementation says)
+def _prefill_plain(q, k, v, q_offset, window):
+    return ref.prefill_attention(q, k, v, q_offset=q_offset,
+                                 window=window).contiguous()
+
+
+def _decode_plain(q, k, v, lengths):
+    return ref.decode_attention(q, k, v, lengths).contiguous()
+
+
+def _like_q(q, *_):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+FLASH_DECODE = library.define(
+    "flash_decode(Tensor q, Tensor k, Tensor v, Tensor lengths) -> Tensor",
+    kernel.flash_decode, _decode_plain, _like_q)
+FLASH_PREFILL = library.define(
+    "flash_prefill(Tensor q, Tensor k, Tensor v, int q_offset, int? window)"
+    " -> Tensor", _prefill_kernel, _prefill_plain, _like_q)
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -16,16 +45,11 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       window: Optional[int] = None) -> torch.Tensor:
     """Causal GQA prefill, optionally over a sliding ``window``.
     q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D)."""
-    if q.device.type == "cpu":
-        return ref.prefill_attention(q, k, v, q_offset=q_offset,
-                                     window=window)
-    return kernel.flash_prefill(q, k, v, q_offset=q_offset, window=window)
+    return FLASH_PREFILL(q, k, v, q_offset, window)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """One-token GQA decode.  q: (B, H, D); k/v: (B, T, Hkv, D);
     lengths: (B,) int32."""
-    if q.device.type == "cpu":
-        return ref.decode_attention(q, k, v, lengths)
-    return kernel.flash_decode(q, k, v, lengths)
+    return FLASH_DECODE(q, k, v, lengths)

@@ -16,9 +16,9 @@ Large paths:
     cooperative launch (every block resident), each block first writes
     its segment's own contribution to the state and its decay into
     scratch (``torch.empty``), the blocks meet at a grid barrier (a
-    per-device pair of counters that each launch leaves ready for the
-    next, ``_barrier``; two such launches in flight on two streams would
-    share it), and each then computes its segment's outputs from the
+    pair of counters per (device, stream) that each launch leaves ready
+    for the next, ``_barrier``, so launches in flight on two streams never
+    share one), and each then computes its segment's outputs from the
     state carried over the segments before it.
 Both paths give the recurrence to fp32 rounding; neither falls back to
 the other, and each raises on what it does not take.
@@ -53,7 +53,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_BARRIERS: Dict[torch.device, torch.Tensor] = {}
+_BARRIERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
@@ -97,13 +97,17 @@ def _resident_blocks(index: int, dtype: int) -> int:
         index).multi_processor_count
 
 
-def _barrier(device: torch.device) -> torch.Tensor:
-    """The chunked path's grid barrier for ``device``: two uint32 (as
-    int32), zero between calls, kept from call to call."""
-    t = _BARRIERS.get(device)
+def _barrier(device: torch.device, stream: torch.cuda.Stream
+             ) -> torch.Tensor:
+    """The chunked path's grid barrier for launches on ``stream`` of
+    ``device``: two uint32 (as int32), zero between calls, kept from call
+    to call.  One stream's launches run one after another and may share
+    it; two streams' launches may overlap, so each stream has its own."""
+    key = (device, stream.stream_id)
+    t = _BARRIERS.get(key)
     if t is None:
         t = torch.zeros(2, dtype=torch.int32, device=device)
-        _BARRIERS[device] = t
+        _BARRIERS[key] = t
     return t
 
 
@@ -165,9 +169,11 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                               device=r.device)
             ascr = torch.empty((nseg, B, H, P), dtype=torch.float32,
                                device=r.device)
-            gbar = _barrier(r.device)
     with torch.cuda.device(r.device):
-        stream = torch.cuda.current_stream(r.device).cuda_stream
+        current = torch.cuda.current_stream(r.device)
+        if nseg > 1:
+            gbar = _barrier(r.device, current)
+        stream = current.cuda_stream
         err = lib.wkv(_DTYPES[r.dtype], path, nseg, seglen, r.data_ptr(),
                       k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
                       state.data_ptr(), y.data_ptr(),

@@ -10,26 +10,83 @@ CUDA device (or the CPU with ``--device cpu``).
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --arch zamba2_7b
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt_oss_20b \
+      --max-len 1024 --max-new 32 --trace poisson \
+      --disaggregate --policy throughput
+
 Dense, MoE, ssm (rwkv6) and hybrid (zamba2) architectures are served;
 the encdec and vlm ones raise ``NotImplementedError``.
 
-Same flags as ``repro.launch.serve`` apart from the Tessera paths
-(``--disaggregate``, ``--policy``, ``--deployment``), which are not
-ported yet; ``--device`` is new.
+``--disaggregate`` traces the decode step (``core.analyzer``), plans it
+for the GPU pair ``PLAN_PAIR`` under ``--policy`` (``core.planner``,
+with the cache's readers and writers pinned to the first device) and
+serves through the disaggregated executable, both logical devices on
+the one ``--device`` (each with its own stream on CUDA).  Same flags as
+``repro.launch.serve`` apart from ``--deployment``, which waits for the
+cluster layer; ``--device`` is new.
 """
 from __future__ import annotations
 
 import argparse
-from typing import List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 import repro_torch.configs as configs
 from repro_torch import resolve_device
+from repro_torch.core import analyzer, planner
+from repro_torch.core.costmodel import CATALOG, PAPER_PAIRS
+from repro_torch.core.executor import build_executable, logical_devices
 from repro_torch.models import model as M
 from repro_torch.serving.engine import (Request, ServingEngine,
                                         requests_from_trace)
 from repro_torch.serving.workload import make_trace
+
+
+# the paper's H100 + RTX Pro 6000 pair, from costmodel.PAPER_PAIRS
+PLAN_PAIR = PAPER_PAIRS[1]
+
+
+def plan_decode(cfg, params, slots: int, max_len: int,
+                device: torch.device,
+                policies: Sequence[str] = ("latency", "throughput")
+                ) -> Dict[str, Any]:
+    """Trace the engine's decode step (``slots`` rows, a cache of
+    ``max_len``), pin the cache's readers and writers to plan device 0
+    and plan it for ``PLAN_PAIR`` under each policy.  Returns {"traced",
+    "plans"}."""
+    cache = M.init_cache(cfg, slots, max_len, device=device)
+    toks = torch.zeros((slots, 1), dtype=torch.int32, device=device)
+    pos = torch.zeros((slots,), dtype=torch.int32, device=device)
+
+    def step(p, c, t, q):
+        return M.decode_step(p, cfg, t, c, q, tagged=True)
+
+    traced = analyzer.analyze(step, params, cache, toks, pos,
+                              state_argnums=(1,))
+    g = analyzer.pin_nodes(traced.graph,
+                           traced.state_readers | traced.state_writers, 0)
+    traced = traced.with_graph(g)
+    devs = [CATALOG[n] for n in PLAN_PAIR]
+    return {"traced": traced,
+            "plans": {pol: planner.plan(g, devs, policy=pol)
+                      for pol in policies}}
+
+
+def disaggregated_decode(cfg, params, slots: int, max_len: int,
+                         device: torch.device,
+                         policies: Sequence[str] = ("latency", "throughput")
+                         ) -> Dict[str, Any]:
+    """``plan_decode``, then one executable per policy on two logical
+    devices of ``device`` (on CUDA, a stream each).  Returns {"traced",
+    "plans", "executables"}."""
+    core = plan_decode(cfg, params, slots, max_len, device, policies)
+    lds = logical_devices(len(PLAN_PAIR), device)
+    core["executables"] = {
+        pol: build_executable(core["traced"], p, lds)
+        for pol, p in core["plans"].items()}
+    return core
 
 
 def build_requests(args, cfg, max_len: int,
@@ -67,15 +124,29 @@ def main(argv: Optional[List[str]] = None) -> dict:
                     help="trace arrival rate (req/s)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: cuda)")
+    ap.add_argument("--disaggregate", action="store_true",
+                    help="serve the decode step through a Tessera plan "
+                         "for the pair " + "+".join(PLAN_PAIR))
+    ap.add_argument("--policy", default="throughput",
+                    choices=["throughput", "latency"])
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))
     params = M.init_params(cfg, device=device)
+
+    decode_fn = None
+    if args.disaggregate:
+        core = disaggregated_decode(cfg, params, args.slots, args.max_len,
+                                    device, policies=(args.policy,))
+        plan = core["plans"][args.policy]
+        print(plan.summary())
+        decode_fn = core["executables"][args.policy]
+
     reqs = build_requests(args, cfg, args.max_len)
     engine = ServingEngine(cfg, params, slots=args.slots,
                            max_len=args.max_len, sync_every=args.sync_every,
-                           device=device)
+                           decode_fn=decode_fn, device=device)
     summary = engine.run(reqs).summary()
     print(summary)
     return summary

@@ -21,9 +21,13 @@
     ``torch.Generator`` on the engine's device,
   * TTFT is stamped only after the device has finished the prefill.
 
-Served: the dense, MoE, ssm (rwkv6) and hybrid (zamba2) families.  Out
-of this slice: paged KV, chunked prefill, sessions and handoff, and the
-``decode_fn``/``prefill_fn`` hooks.
+Served: the dense, MoE, ssm (rwkv6) and hybrid (zamba2) families.
+``decode_fn(params, cache, tokens, pos) -> (logits, cache)`` replaces the
+model's decode step (e.g. a Tessera ``StagedExecutable``, or a function
+choosing one by the online monitor's policy); ``prefill_fn(params,
+cache, tokens) -> (logits, cache)`` replaces its prefill, one request
+per admission at its exact length.  Out of this slice: paged KV, chunked
+prefill, sessions and handoff.
 
 Accounting note: completion times are observed at sync boundaries, so a
 request's ``finished`` stamp can be up to ``sync_every - 1`` decode steps
@@ -95,6 +99,8 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 4,
                  max_len: int = 256, eos_id: Optional[int] = None,
                  temperature: float = 0.0, seed: int = 0,
+                 decode_fn: Optional[Callable] = None,
+                 prefill_fn: Optional[Callable] = None,
                  sync_every: int = 8, device: DeviceLike = None):
         L.check_supported(cfg)
         if sync_every < 1:
@@ -107,6 +113,8 @@ class ServingEngine:
         self.eos_id = eos_id
         self.temperature = float(temperature)
         self.sync_every = sync_every
+        self._decode_custom = decode_fn
+        self._prefill_custom = prefill_fn
         self.generator = default_generator(self.device, seed)
         self.stats = EngineStats()
 
@@ -145,9 +153,13 @@ class ServingEngine:
         """One decode step plus sampling and termination, all queued on
         the device.  Returns ``packed`` (2, slots) int32: [emitted token
         or -1 for an idle slot; done flag]."""
-        logits, self.cache = M.decode_step(
-            self.params, self.cfg, self.last_tok[:, None], self.cache,
-            self.pos)
+        if self._decode_custom is not None:
+            logits, self.cache = self._decode_custom(
+                self.params, self.cache, self.last_tok[:, None], self.pos)
+        else:
+            logits, self.cache = M.decode_step(
+                self.params, self.cfg, self.last_tok[:, None], self.cache,
+                self.pos)
         tok = self._sample(logits)
         active = self.active_mask
         new_pos = torch.where(active, self.pos + 1, self.pos)
@@ -191,7 +203,10 @@ class ServingEngine:
                           ) -> List[List[Tuple[int, Request]]]:
         """Partition admitted (slot, request) pairs into prefill groups:
         one padded batch for attention families, exact-length groups
-        (in order of first arrival) for recurrent ones."""
+        (in order of first arrival) for recurrent ones, one request each
+        for an injected prefill."""
+        if self._prefill_custom is not None:
+            return [[p] for p in pairs]
         if self.cfg.family in _PAD_SAFE_FAMILIES:
             return [pairs]
         by_len: Dict[int, List[Tuple[int, Request]]] = {}
@@ -208,7 +223,8 @@ class ServingEngine:
         # the batch to a power of two (pad rows are separate rows) and,
         # for attention families only, S to a multiple of 8; a recurrent
         # group has one exact length
-        if self.cfg.family in _PAD_SAFE_FAMILIES:
+        if self.cfg.family in _PAD_SAFE_FAMILIES \
+                and self._prefill_custom is None:
             S = min(-(-max(lens) // 8) * 8, self.max_len - 1)
         else:
             S = max(lens)
@@ -225,9 +241,15 @@ class ServingEngine:
         # [0, pos] (or, in a ring buffer, over every slot only once
         # positions have wrapped, when all of them have been written).
         cache_g = M.init_cache(self.cfg, Gp, S, device=dev)
-        logits, cache_g = M.prefill(
-            self.params, self.cfg, torch.from_numpy(toks).to(dev), cache_g,
-            last_pos=torch.from_numpy(last).to(dev))
+        if self._prefill_custom is not None:
+            # one request at its exact length: its logits are the last
+            # column's
+            logits, cache_g = self._prefill_custom(
+                self.params, cache_g, torch.from_numpy(toks).to(dev))
+        else:
+            logits, cache_g = M.prefill(
+                self.params, self.cfg, torch.from_numpy(toks).to(dev),
+                cache_g, last_pos=torch.from_numpy(last).to(dev))
         idx = torch.tensor(slots_, dtype=torch.long, device=dev)
         self._write_slots(idx, cache_g, G)
         # honest TTFT: the first token exists only once the device is done
@@ -274,14 +296,24 @@ class ServingEngine:
         """Run one prefill and one decode step so the first real request
         does not pay first-call costs (kernel build, allocator growth).
         Engine state is untouched: both probes run on caches of their
-        own (a decode step advances every slot's recurrent state)."""
+        own (a decode step advances every slot's recurrent state).  An
+        injected ``decode_fn`` is warmed at the engine's cache shape (a
+        traced step takes only the shapes it was traced at); an injected
+        ``prefill_fn`` is not called (its shapes are the caller's)."""
         dev = self.device
-        M.prefill(self.params, self.cfg,
-                  torch.zeros((1, 8), dtype=torch.int32, device=dev),
-                  M.init_cache(self.cfg, 1, 8, device=dev))
-        M.decode_step(self.params, self.cfg, self.last_tok[:, None],
-                      M.init_cache(self.cfg, self.slots, 8, device=dev),
-                      torch.zeros_like(self.pos))
+        if self._prefill_custom is None:
+            M.prefill(self.params, self.cfg,
+                      torch.zeros((1, 8), dtype=torch.int32, device=dev),
+                      M.init_cache(self.cfg, 1, 8, device=dev))
+        if self._decode_custom is not None:
+            self._decode_custom(
+                self.params,
+                M.init_cache(self.cfg, self.slots, self.max_len, device=dev),
+                self.last_tok[:, None], torch.zeros_like(self.pos))
+        else:
+            M.decode_step(self.params, self.cfg, self.last_tok[:, None],
+                          M.init_cache(self.cfg, self.slots, 8, device=dev),
+                          torch.zeros_like(self.pos))
         _wait(dev)
 
     # ------------------------------------------------------------------ #
