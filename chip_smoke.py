@@ -24,7 +24,10 @@ Phases; any failure raises and the script exits non-zero:
               at zamba2-7b's prefill and a ragged length, from a nonzero
               state), and time kernel, plain version and, where there is
               one, one PyTorch call of the same function (K4 and K5 also
-              at B 1, the shape of every recurrent serve admission);
+              at B 1, the shape of every recurrent serve admission; K2
+              also at one chunk of a chunked llama3-8b admission, Sq 128
+              at q_offset 384 over Skv 512, against SDPA with a
+              bottom-right causal mask);
   3. llama    full-width llama3-8b in bf16 (random weights from a seeded
               generator): one right-padded prefill and 8 decode steps
               through the kernels, each step under
@@ -58,6 +61,24 @@ Phases; any failure raises and the script exits non-zero:
               prompt of 300 ends in a ragged chunk); then the serving
               run, with K1 = 27 per decode step, K2 = 27 per admission and
               K5 = 81 per admission of a prompt longer than one token;
+  paged       after the serving run of each model, with its parameters
+              still loaded, paged KV, chunked admission and the prefill ->
+              decode handoff (``serving/kvpool.py``), every decode step
+              under set_sync_debug_mode("error"): llama3-8b (bf16) served
+              by a paged engine (48 blocks of 64 tokens) that must
+              preempt, spill and prefetch, one session's park -> spill ->
+              prefetch -> activate round trip bitwise on every cache leaf;
+              by a chunked-admission engine (128-token chunks, K2 32 per
+              chunk, at q_offset > 0 inside the model); by a serial and a
+              streamed prefill -> decode pair of engines; a 4 x 512
+              chunked prefill held against the whole one at MODEL_RTOL;
+              the same four runs in fp32 at 4 layers give the fixed
+              engine's greedy tokens; gpt-oss-20b's serial pair ships
+              each session's whole ring and lands it bit for bit;
+              rwkv6-3b and zamba2-7b prefill 4 x 512 in 128-token chunks
+              from the carried state, logits and every final state leaf
+              held against one whole prefill at the model's phase-6/7
+              tolerance, with K4 / K5 (and K2) launched once per chunk;
   8. tessera  the Tessera core on the decode step at full width (bf16, B
               4, max_len 1024): the step of all four models traced with
               torch.export (kernel op nodes = launches per step: 32 K1;
@@ -104,6 +125,15 @@ MAX_LEN = 1024                        # engine cache length
 PROMPT = 512                          # longest prompt (max_len // 2)
 DECODE_STEPS = 8
 N_REQUESTS, MAX_NEW, RATE = 8, 32, 20.0
+# the "paged" phase: a pool of 48 blocks of 64 tokens (llama3-8b: 128 KiB
+# a token, so 384 MiB, against 512 MiB for the 4 x 1024 dense cache),
+# prefill chunks of 128 tokens, and llama3-8b in fp32 at 4 layers for the
+# greedy identity of the engines
+KV_BLOCK, KV_POOL, PREFILL_CHUNK = 64, 48, 128
+IDENTITY_LAYERS = 4
+# K2 at one chunk of a chunked llama3-8b admission: the last 128-token
+# chunk of a 512-token prompt
+CHUNK_SQ, CHUNK_OFFSET = 128, 384
 # attention shapes (H, Hkv, D) of the three attention models
 LLAMA_ATTN = (32, 8, 128)
 GPTOSS_ATTN = (64, 8, 64)
@@ -380,7 +410,56 @@ def time_attention(g, FK, FR, errs) -> list:
                 f"sdpa {row['library_ms']:.4f} ms, bound "
                 f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
             rows.append(row)
+    rows.append(time_prefill_chunk(g, FK, FR))
     return rows
+
+
+def sdpa_prefill_lower_right(q, k, v):
+    """SDPA with the causal mask aligned bottom-right (query i at position
+    Skv - Sq + i), the chunk's alignment; ``is_causal`` aligns top-left."""
+    from torch.nn.attention.bias import causal_lower_right
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=causal_lower_right(q.shape[1], k.shape[1]),
+        enable_gqa=True)
+
+
+def time_prefill_chunk(g, FK, FR) -> dict:
+    """K2 at one chunk of a chunked llama3-8b admission: B 4, Sq 128 at
+    q_offset 384 over the filled prefix Skv 512 (bf16, held at TOL)."""
+    dt, es = torch.bfloat16, 2
+    H, Hkv, D = LLAMA_ATTN
+    Skv = CHUNK_OFFSET + CHUNK_SQ
+    sets = [prefill_inputs(g, dt, CHUNK_SQ, LLAMA_ATTN, Skv)
+            for _ in range(3)]
+
+    def kern(q, k, v):
+        return FK.flash_prefill(q, k, v, q_offset=CHUNK_OFFSET)
+
+    def plain(q, k, v):
+        return FR.prefill_attention(q, k, v, q_offset=CHUNK_OFFSET)
+
+    err = check(f"K2 bf16 D={D} S={CHUNK_SQ} Skv={Skv} q_offset="
+                f"{CHUNK_OFFSET}", kern(*sets[0]), plain(*sets[0]), TOL[dt])
+    lib_err = check("SDPA lower-right vs plain", sdpa_prefill_lower_right(
+        *sets[0]).transpose(1, 2), plain(*sets[0]), TOL[dt])
+    # each query of the chunk sees the prefix and the chunk's causal part
+    pairs = CHUNK_SQ * CHUNK_OFFSET + CHUNK_SQ * (CHUNK_SQ + 1) // 2
+    bnd = bound(es * (2 * B * CHUNK_SQ * H * D + 2 * B * Skv * Hkv * D),
+                4 * D * H * B * pairs, dt)
+    row = {"name": "flash_prefill_chunk", "route": "cuda",
+           "source": FA_SRC + "flash_prefill.cu",
+           "replaces": REPLACES["flash_prefill"], "launches": 0,
+           "max_abs_err": err, "ms": time_ms(kern, sets),
+           "plain_ms": time_ms(plain, sets, iters=10), **bnd,
+           "library_ms": time_ms(sdpa_prefill_lower_right, sets)}
+    log(f"[kernels] flash_prefill_chunk bf16 H={H} Hkv={Hkv} D={D} Sq="
+        f"{CHUNK_SQ} q_offset={CHUNK_OFFSET} Skv={Skv}: max abs err "
+        f"{err:.3e} (SDPA lower-right vs plain {lib_err:.3e}); kernel "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+        f"(causal_lower_right) {row['library_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return row
 
 
 def gmm_inputs(g, dtype, sizes, w):
@@ -821,7 +900,7 @@ def expected_launches(cfg, steps: int, admissions: int,
     return out
 
 
-def phase_model(cfg, params, k, lens) -> None:
+def phase_model(cfg, params, k, lens) -> float:
     """Prefill of ``lens`` (right-padded for attention families; equal
     lengths for recurrent ones, whose state a pad token would enter) and
     DECODE_STEPS decode steps, through the kernels and through the plain
@@ -846,7 +925,8 @@ def phase_model(cfg, params, k, lens) -> None:
     shadow run holds every kernel call of the model against its plain
     version on the same inputs (attention at phase 2's tolerances, the
     scans at their error bounds).  The tight logit comparison is the
-    fp32 run at full depth."""
+    fp32 run at full depth.  Returns the relative logit difference it
+    held the kernels to."""
     M, L = k.M, k.L
     rng = np.random.default_rng(0)
     lens = np.asarray(lens)
@@ -970,6 +1050,7 @@ def phase_model(cfg, params, k, lens) -> None:
             raise AssertionError(f"{cfg.name}: free-running rel err "
                                  f"{worst:.3e} > {limit:.3e}")
         held = f"at {limit:.3e}, and each kernel call (shadow)"
+        rtol = limit
     elif worst > rtol:
         raise AssertionError(f"{cfg.name}: rel err {worst:.3e} > {rtol}")
     window = f", window {cfg.sliding_window} (ring of " \
@@ -989,6 +1070,7 @@ def phase_model(cfg, params, k, lens) -> None:
     log(f"[{cfg.name}] host time to queue a decode step (kernels): mean "
         f"{float(np.mean(enq)):.2f} ms of {float(np.mean(wall[1:])):.2f} ms "
         "wall")
+    return rtol
 
 
 # the kernels JSON rows that each family's serving run supplies launches
@@ -1013,43 +1095,19 @@ SERVE_ROWS = {
 def phase_serve(cfg, params, k) -> dict:
     """Serve N_REQUESTS Poisson requests; returns the launches of each
     kernel row (those inside admissions and the decode steps' apart)."""
-    from repro_torch.serving.engine import ServingEngine, requests_from_trace
+    from repro_torch.serving.engine import requests_from_trace
     from repro_torch.serving.workload import make_trace
-    M = k.M
     trace = make_trace("poisson", RATE, N_REQUESTS, seed=0)
     reqs = requests_from_trace(trace, cfg.vocab_size,
                                max_prompt=MAX_LEN // 2, max_new=MAX_NEW)
-    engine = ServingEngine(cfg, params, slots=B, max_len=MAX_LEN,
-                           device=DEV)
-    engine.warmup()
-    in_prefill = dict.fromkeys(KERNEL_NAMES, 0)
-    prefill_lens = []
-    prefill = M.prefill
-
-    def counted_prefill(params_, cfg_, tokens, *a, **kw):
-        before = counts(k)
-        out = prefill(params_, cfg_, tokens, *a, **kw)
-        for name, v in counts(k).items():
-            in_prefill[name] += v - before[name]
-        prefill_lens.append(tokens.shape[1])
-        return out
-    M.prefill = counted_prefill
-    reset_counts(k)                     # count the main path's run only
-    try:
-        t = time.perf_counter()
-        stats = engine.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    finally:
-        M.prefill = prefill
-    launches = counts(k)
-    for r in reqs:
-        if len(r.output) != r.max_new_tokens or r.finished < 0 \
-                or not all(0 <= x < cfg.vocab_size for x in r.output):
-            raise AssertionError(f"request {r.rid}: {len(r.output)} tokens"
-                                 f" of {r.max_new_tokens}")
+    engine, reqs, wall, _, launches, calls = serve_colocated(
+        cfg, params, k, "serve", reqs=reqs)
+    stats = engine.stats
     if stats.completed != len(reqs):
         raise AssertionError(f"completed {stats.completed}/{len(reqs)}")
+    in_prefill = {name: sum(c[2][name] for c in calls)
+                  for name in KERNEL_NAMES}
+    prefill_lens = [n for n, _, _ in calls]
     steps, adm = stats.decode_steps, stats.prefill_batches
     long_adm = sum(1 for n in prefill_lens if n > 1)
     expect = expected_launches(cfg, steps, adm, long_adm)
@@ -1076,6 +1134,399 @@ def phase_serve(cfg, params, k) -> dict:
     return {row: (in_prefill[c] if where == "prefill"
                   else launches[c] - in_prefill[c])
             for row, c, where in rows}
+
+
+# --------------------------------------------------------------------- #
+# paged: paged KV, chunked admission and the prefill -> decode handoff
+# --------------------------------------------------------------------- #
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip() \
+        .splitlines()[0]
+
+
+def paged_requests(cfg):
+    """The serve phase's 8 trace requests (prompts cut to 512), all
+    arriving at 0 with 32 new tokens, priorities 0 / 1 alternating."""
+    from repro_torch.serving.engine import requests_from_trace
+    from repro_torch.serving.workload import make_trace
+    reqs = requests_from_trace(make_trace("poisson", RATE, N_REQUESTS, seed=0),
+                               cfg.vocab_size, max_prompt=PROMPT,
+                               max_new=MAX_NEW, time_scale=0.0)
+    for i, r in enumerate(reqs):
+        r.max_new_tokens, r.priority = MAX_NEW, i % 2
+    return reqs
+
+
+def no_sync_steps(engine) -> None:
+    """Run each of ``engine``'s decode steps (decode, sampling and
+    termination) under set_sync_debug_mode("error"): a host sync raises."""
+    fused = engine._step_fused
+
+    def guarded():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fused()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    engine._step_fused = guarded
+
+
+def check_completed(what, reqs, cfg) -> None:
+    for r in reqs:
+        if len(r.output) != r.max_new_tokens or r.finished < 0 \
+                or not all(0 <= x < cfg.vocab_size for x in r.output):
+            raise AssertionError(f"{what}: request {r.rid}: {len(r.output)} "
+                                 f"tokens of {r.max_new_tokens}")
+
+
+def engine_numbers(stats, reqs, wall, adm_wall=None,
+                   what="admission") -> str:
+    """TTFT, TPOT and decode tokens/s of one run; with ``adm_wall`` (the
+    wall of each admission, or of each handoff of a prefill -> decode
+    pair) their mean and the decode step's: the rest of the run's wall
+    over its decode steps."""
+    s = stats.summary()
+    decode_tokens = sum(len(r.output) - 1 for r in reqs)
+    out = (f"TTFT {s['mean_ttft']:.4f} s, TPOT {s['mean_tpot']:.4f} s, "
+           f"{decode_tokens / wall:.1f} decode tok/s ({s['decode_steps']} "
+           f"steps, {wall:.3f} s wall)")
+    if adm_wall is not None:
+        steps = max(s["decode_steps"], 1)
+        adm = 1e3 * sum(adm_wall) / max(len(adm_wall), 1)
+        out += (f", {what} {adm:.2f} ms x {len(adm_wall)}, decode step "
+                f"{1e3 * (wall - sum(adm_wall)) / steps:.2f} ms")
+    return out
+
+
+def serve_colocated(cfg, params, k, label, hook=None, reqs=None, **knobs):
+    """One engine (4 slots, max_len 1024, ``knobs``) serving ``reqs``
+    (default: paged_requests), its decode steps under
+    set_sync_debug_mode("error"), the launch counters zeroed just before
+    the run; ``hook(engine)`` is called before it.  Every request must
+    complete with its token count.  Returns (engine, requests, wall,
+    admission walls, launches, prefill calls as (length, offset,
+    launches in the call))."""
+    from repro_torch.serving.engine import ServingEngine
+    M = k.M
+    reqs = paged_requests(cfg) if reqs is None else reqs
+    engine = ServingEngine(cfg, params, slots=B, max_len=MAX_LEN, device=DEV,
+                           **knobs)
+    engine.warmup()
+    no_sync_steps(engine)
+    if hook is not None:
+        hook(engine)
+    calls, adm_wall = [], []
+    prefill, admit_group = M.prefill, engine._admit_group
+
+    def counted_prefill(params_, cfg_, tokens, *a, **kw):
+        before = counts(k)
+        out = prefill(params_, cfg_, tokens, *a, **kw)
+        after = counts(k)
+        calls.append((tokens.shape[1], kw.get("offset"),
+                      {n: after[n] - before[n] for n in after}))
+        return out
+
+    def timed_admit(group, now):
+        t = time.perf_counter()
+        admit_group(group, now)
+        adm_wall.append(time.perf_counter() - t)
+    M.prefill, engine._admit_group = counted_prefill, timed_admit
+    reset_counts(k)
+    try:
+        t = time.perf_counter()
+        engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        M.prefill = prefill
+    check_completed(f"{cfg.name} {label}", reqs, cfg)
+    return engine, reqs, wall, adm_wall, counts(k), calls
+
+
+def watch_round_trip(engine, M, cfg) -> list:
+    """Check one session's park -> spill -> prefetch -> activate round
+    trip: its slot's state at the park (exported) against the slot after
+    the activation, every cache leaf with torch.equal.  Returns the list
+    the rid of the checked session is appended to."""
+    snap, done = {}, []
+    park, activate = engine._park_slot, engine._activate_parked
+
+    def park_hook(slot, t):
+        if not snap and not done:
+            p = int(engine.pos[slot])
+            snap[engine.active[slot].rid] = (M.export_kv(cfg, engine.cache,
+                                                         slot, p), p)
+        park(slot, t)
+
+    def activate_hook(rid, slot, t):
+        spilled = engine._paged.resident[rid].tier == "host"
+        activate(rid, slot, t)
+        if rid in snap:
+            state, p = snap.pop(rid)
+            if not spilled:
+                return          # parked in the pool only: watch the next
+            back = M.export_kv(cfg, engine.cache, slot, p)
+            leaves = list(zip(M.state_leaves(state), M.state_leaves(back)))
+            if not leaves or not all(torch.equal(a, b) for a, b in leaves):
+                raise AssertionError(f"rid {rid}: the park -> spill -> "
+                                     "prefetch -> activate round trip "
+                                     "changed the slot's state")
+            done.append(rid)
+    engine._park_slot, engine._activate_parked = park_hook, activate_hook
+    return done
+
+
+def serve_pd(cfg, params, reqs, streamed, check_state=False):
+    """The reference spec's prefill -> decode loop (the port's
+    ``serving.engine.serve_pd``) on a pair of engines on the card: serial
+    or streamed in 128-token chunks.  With ``check_state`` every landed
+    state is compared with its handoff, bit for bit.  Returns (decode
+    engine, wall, the wall of each handoff, wire bytes, shards)."""
+    from repro_torch.serving.engine import ServingEngine, serve_pd as loop
+    from repro_torch.models import model as M
+    pre = ServingEngine(cfg, params, slots=B, max_len=MAX_LEN, device=DEV,
+                        prefill_chunk=PREFILL_CHUNK if streamed else None)
+    dec = ServingEngine(cfg, params, slots=B, max_len=MAX_LEN, device=DEV)
+    pre.warmup()
+    dec.warmup()
+    no_sync_steps(dec)
+
+    def landed(req, h):
+        slot = next(s for s, r in enumerate(dec.active) if r is req)
+        got = M.export_kv(cfg, dec.cache, slot, h["pos"])
+        pairs = list(zip(M.state_leaves(h["state"]), M.state_leaves(got)))
+        if not pairs or not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"rid {req.rid}: the handoff landed "
+                                 "changed")
+
+    t0 = time.perf_counter()
+    wire, shards, walls = loop(pre, dec, reqs, streamed,
+                               on_landed=landed if check_state else None)
+    torch.cuda.synchronize()
+    return dec, time.perf_counter() - t0, walls, wire, shards
+
+
+def check_chunk_calls(cfg, calls, admissions, chunk) -> int:
+    """Every admission of a chunked engine is ceil(S / chunk) prefill calls
+    at offsets 0, chunk, 2 chunk, ..., each launching K2 once per layer.
+    Returns the K2 launches of the calls at an offset > 0."""
+    groups = []
+    for n, off, launched in calls:
+        if not off:
+            groups.append([])
+        groups[-1].append((n, off or 0, launched))
+    if len(groups) != admissions:
+        raise AssertionError(f"{admissions} admissions, prefill calls "
+                             f"{[(n, o) for n, o, _ in calls]}")
+    at_offset = 0
+    for g_ in groups:
+        S = g_[-1][1] + g_[-1][0]
+        want = [(min(chunk, S - o), o) for o in range(0, S, chunk)] \
+            if S > chunk else [(S, 0)]
+        if [(n, o) for n, o, _ in g_] != want:
+            raise AssertionError(f"admission of {S} tokens: chunks "
+                                 f"{[(n, o) for n, o, _ in g_]} != {want}")
+        for n, o, launched in g_:
+            if launched["flash_prefill"] != cfg.num_layers:
+                raise AssertionError(f"chunk ({n}, {o}): K2 launched "
+                                     f"{launched['flash_prefill']} times")
+            if o > 0:
+                at_offset += launched["flash_prefill"]
+    if not at_offset:
+        raise AssertionError("no chunk ran at an offset > 0")
+    return at_offset
+
+
+def phase_paged_llama(cfg, params, k) -> dict:
+    """llama3-8b (bf16, full width): a paged engine that preempts, spills
+    and prefetches, a chunked-admission engine and the two prefill ->
+    decode pairs serve paged_requests; a 4 x 512 chunked prefill against
+    the whole one.  Returns {"flash_prefill_chunk": K2 launches at an
+    offset > 0 in the chunked engine's run}."""
+    M, name = k.M, card()
+    fixed = serve_colocated(cfg, params, k, "fixed")
+    lines = {"fixed": engine_numbers(fixed[0].stats, fixed[1], fixed[2],
+                                     fixed[3])}
+
+    # paged: 48 blocks of 64 tokens for sessions of up to 544 tokens
+    watched = []
+    eng, reqs, wall, adm, launched, _ = serve_colocated(
+        cfg, params, k, "paged",
+        hook=lambda e: watched.append(watch_round_trip(e, M, cfg)),
+        kv_block_tokens=KV_BLOCK, kv_pool_blocks=KV_POOL)
+    pk = eng._paged
+    if min(pk.preemptions, pk.spills, pk.prefetches) < 1 or not watched[-1] \
+            or pk.pool.free != pk.pool.n_blocks or not pk.pool.check():
+        raise AssertionError(f"paged: preemptions {pk.preemptions}, spills "
+                             f"{pk.spills}, prefetches {pk.prefetches}, "
+                             f"round trips checked {watched}, free blocks "
+                             f"{pk.pool.free} of {pk.pool.n_blocks}")
+    expect = expected_launches(cfg, eng.stats.decode_steps,
+                               eng.stats.prefill_batches, 0)
+    if launched != expect:
+        raise AssertionError(f"paged launches {launched} vs {expect}")
+    lines["paged"] = engine_numbers(eng.stats, reqs, wall, adm) + (
+        f", {pk.preemptions} preemptions, {pk.spills} spills, "
+        f"{pk.prefetches} prefetches, round trip of rid {watched[-1][0]} "
+        "bitwise")
+    pool_mib = KV_POOL * M.kv_block_bytes(cfg, KV_BLOCK) / 2**20
+    log(f"[paged] {cfg.name} on {name}, paged engine ({KV_POOL} blocks of "
+        f"{KV_BLOCK} tokens = {pool_mib:.0f} MiB pool, {B} slots): "
+        f"{lines['paged']}, launches {launched}")
+
+    # chunked admission, 128-token chunks
+    eng, reqs, wall, adm, launched, calls = serve_colocated(
+        cfg, params, k, "chunked", prefill_chunk=PREFILL_CHUNK)
+    at_offset = check_chunk_calls(cfg, calls, eng.stats.prefill_batches,
+                                  PREFILL_CHUNK)
+    expect = expected_launches(cfg, eng.stats.decode_steps, len(calls), 0)
+    if launched != expect:
+        raise AssertionError(f"chunked launches {launched} vs {expect}")
+    lines["chunked"] = engine_numbers(eng.stats, reqs, wall, adm)
+    log(f"[paged] {cfg.name} on {name}, chunked admission "
+        f"({PREFILL_CHUNK}-token chunks): {lines['chunked']}; {len(calls)} "
+        "prefill calls "
+        f"(length, offset) {[(n, o) for n, o, _ in calls]}, K2 = "
+        f"{cfg.num_layers} per chunk ({at_offset} at q_offset > 0)")
+
+    # a 4 x 512 chunked prefill against the whole one
+    rng = np.random.default_rng(0)
+    lens = [PROMPT, 300, 77, 5]
+    toks = np.zeros((B, PROMPT), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    toks_d = torch.from_numpy(toks).to(DEV)
+    last = torch.tensor([n - 1 for n in lens], dtype=torch.int32, device=DEV)
+    outs, walls = [], []
+    for chunk in (None, PREFILL_CHUNK, None, PREFILL_CHUNK):
+        cache = M.init_cache(cfg, B, MAX_LEN, device=DEV)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if chunk is None:
+            lg, _ = M.prefill(params, cfg, toks_d, cache, last_pos=last)
+        else:
+            lg, _ = M.prefill_chunked(params, cfg, toks_d, cache,
+                                      chunk_size=chunk, last_pos=last)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+        outs.append(lg.float()[:, :cfg.vocab_size])
+        del cache
+    rel = float((outs[1] - outs[0]).abs().max() / outs[0].abs().max())
+    if not torch.isfinite(outs[1]).all() or \
+            rel > MODEL_RTOL[torch.bfloat16]:
+        raise AssertionError(f"chunked prefill rel err {rel:.3e}")
+    log(f"[paged] {cfg.name} on {name}, 4 x 512 prefill (rows {lens}), "
+        f"chunks of {PREFILL_CHUNK} vs whole: logits rel err {rel:.3e} (held at "
+        f"{MODEL_RTOL[torch.bfloat16]}), wall whole {walls[0]:.2f} / "
+        f"{walls[2]:.2f} ms, chunked {walls[1]:.2f} / {walls[3]:.2f} ms")
+
+    for streamed in (False, True):
+        reqs = paged_requests(cfg)
+        dec, wall, walls, wire, shards = serve_pd(cfg, params, reqs,
+                                                  streamed)
+        kind = "streamed pd" if streamed else "serial pd"
+        check_completed(f"{cfg.name} {kind}", reqs, cfg)
+        lines[kind] = engine_numbers(dec.stats, reqs, wall, walls,
+                                     "handoff") + (
+            f", {wire / 2**20:.1f} MiB on the wire"
+            + (f" in {shards} shards" if streamed else ""))
+    log(f"[paged] {cfg.name} on {name}: " + "; ".join(
+        f"{kind}: {line}" for kind, line in lines.items()))
+    return {"flash_prefill_chunk": at_offset}
+
+
+def phase_paged_identity(cfg, k) -> None:
+    """llama3-8b at full width in fp32 with IDENTITY_LAYERS layers: the
+    paged, chunked and both prefill -> decode runs give the fixed-slot
+    engine's greedy tokens."""
+    small = dataclasses.replace(cfg, num_layers=IDENTITY_LAYERS,
+                                dtype="float32")
+    params = init_params(k.M, small)
+    outs = {}
+    for label, knobs in (("fixed", {}),
+                         ("paged", dict(kv_block_tokens=KV_BLOCK,
+                                        kv_pool_blocks=KV_POOL)),
+                         ("chunked", dict(prefill_chunk=PREFILL_CHUNK))):
+        reqs = serve_colocated(small, params, k, label, **knobs)[1]
+        outs[label] = [r.output for r in reqs]
+    for streamed in (False, True):
+        reqs = paged_requests(small)
+        serve_pd(small, params, reqs, streamed)
+        outs["streamed pd" if streamed else "serial pd"] = \
+            [r.output for r in reqs]
+    diff = {label: [i for i, (a, b) in enumerate(zip(o, outs["fixed"]))
+                    if a != b] for label, o in outs.items()}
+    if any(diff.values()):
+        raise AssertionError(f"greedy tokens differ from the fixed engine's "
+                             f"(request indices): {diff}")
+    log(f"[paged] {small.name} fp32, {IDENTITY_LAYERS} layers: paged, "
+        "chunked, serial and streamed prefill -> decode runs give the "
+        f"fixed engine's greedy tokens ({len(outs['fixed'])} requests x "
+        f"{MAX_NEW} tokens)")
+    free(params)
+
+
+def phase_paged_handoff(cfg, params) -> None:
+    """gpt-oss-20b (bf16): the serial prefill -> decode pair; each session
+    ships its whole ring, and lands bit for bit."""
+    reqs = paged_requests(cfg)
+    dec, wall, walls, wire, _ = serve_pd(cfg, params, reqs, False,
+                                         check_state=True)
+    check_completed(f"{cfg.name} serial pd", reqs, cfg)
+    log(f"[paged] {cfg.name} on {card()}: serial pd: "
+        f"{engine_numbers(dec.stats, reqs, wall, walls, 'handoff')}, "
+        f"{wire / 2**20:.1f} MiB on "
+        f"the wire ({wire // len(reqs)} bytes a session: the whole ring), "
+        "every landed state bitwise equal to its handoff")
+
+
+def phase_paged_recurrent(cfg, params, k, limit) -> None:
+    """rwkv6-3b / zamba2-7b (bf16): a 4 x 512 prefill in 128-token chunks,
+    each from the state the one before left, against one whole prefill:
+    logits and every final state leaf held at ``limit`` (what phase_model
+    held the model to), K4 / K5 (and K2) launched once per layer per
+    chunk."""
+    M = k.M
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, PROMPT))
+                            .astype(np.int32)).to(DEV)
+    runs = []
+    for chunk in (None, PREFILL_CHUNK) * 2:     # the second pair is warm
+        cache = M.init_cache(cfg, B, PROMPT, device=DEV)
+        reset_counts(k)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if chunk is None:
+            lg, cache = M.prefill(params, cfg, toks, cache)
+        else:
+            lg, cache = M.prefill_chunked(params, cfg, toks, cache,
+                                          chunk_size=chunk)
+        torch.cuda.synchronize()
+        runs.append((lg.float()[:, :cfg.vocab_size], cache, counts(k),
+                     1e3 * (time.perf_counter() - t)))
+    (lw, cw, nw, tw), (lc, cc, nc, tc) = runs[:2]
+    n = PROMPT // PREFILL_CHUNK
+    if nc != {name: v * n for name, v in nw.items()} or not any(nw.values()):
+        raise AssertionError(f"chunked launches {nc}, whole {nw}")
+    errs = {"logits": float((lc - lw).abs().max() / lw.abs().max())}
+    for key, leaves in cw.items():
+        for leaf, a in leaves.items():
+            b = cc[key][leaf]
+            errs[f"{key}.{leaf}"] = float((b.float() - a.float()).abs().max()
+                                          / a.float().abs().max())
+    bad = {w: e for w, e in errs.items() if not e <= limit}
+    if bad or not torch.isfinite(lc).all():
+        raise AssertionError(f"{cfg.name}: chunked vs whole {bad} > {limit}")
+    log(f"[paged] {cfg.name} on {card()}, 4 x {PROMPT} prefill in {n} "
+        f"chunks of {PREFILL_CHUNK} from the carried state vs whole: rel err "
+        + ", ".join(f"{w} {e:.3e}" for w, e in errs.items())
+        + f" (held at {limit:.3e}); launches {nc} = {n} x {nw}; wall whole "
+        f"{tw:.2f} / {runs[2][3]:.2f} ms, chunked {tc:.2f} / {runs[3][3]:.2f}"
+        " ms (first / second call)")
 
 
 # --------------------------------------------------------------------- #
@@ -1475,18 +1926,27 @@ def main() -> int:
 
     def served(cfg, lens, first=None):
         """Optionally a first model check of another configuration (``first``
-        = (config, lens)), then the model check and the serving run of
-        ``cfg`` at full width."""
+        = (config, lens)), then the model check, the serving run and the
+        "paged" checks of ``cfg`` at full width, with its parameters
+        loaded once."""
         if first is not None:
             first_cfg, first_lens = first
             params = init_params(M, first_cfg)
             phase_model(first_cfg, params, k, first_lens)
             free(params)
         params = init_params(M, cfg)
-        phase_model(cfg, params, k, lens)
+        limit = phase_model(cfg, params, k, lens)
         launches.update(phase_serve(cfg, params, k))
-        free(params)
         log_phase(cfg.name)
+        if cfg.family == "dense":
+            launches.update(phase_paged_llama(cfg, params, k))
+            phase_paged_identity(cfg, k)
+        elif cfg.family == "moe":
+            phase_paged_handoff(cfg, params)
+        else:
+            phase_paged_recurrent(cfg, params, k, limit)
+        free(params)
+        log_phase(f"{cfg.name} paged")
 
     served(configs.get("llama3_8b"), [PROMPT, 300, 77, 5])
     # the window check (2 layers, fp32, window 128), then gpt-oss-20b
@@ -1510,12 +1970,8 @@ def main() -> int:
 
     for row in rows:
         row["launches"] = launches[row["name"]]
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"kernels": rows}))
-    print(card.splitlines()[0])
+    print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

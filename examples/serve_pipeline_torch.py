@@ -16,9 +16,15 @@ faster device (the prefill graph traced on meta tensors, through the
 attention and SSD kernels' fake implementations).  Modeled numbers are
 for the H100 + RTX Pro 6000 pair the plans were solved for
 (``costmodel.PAPER_PAIRS``); wall clock is whatever device runs this
-script.  The reference's phase-split handoff (its part after the
-monitor) needs the paged KV pool and the deployment spec, not ported
-yet.
+script.
+
+The last part is the phase-split handoff: a prefill engine exports each
+request's state and a decode engine continues from it, serially (the
+whole state after the prefill) and streamed ((layer, chunk) shards while
+later chunks still run), driven through the engines' own API as the
+reference deployment spec drives its prefill/decode pair; greedy decode
+must equal a single engine's.  The spec itself (and its DES backend) is
+not ported yet.
 """
 import argparse
 import dataclasses
@@ -34,7 +40,8 @@ from repro_torch.core.costmodel import CATALOG, PAPER_PAIRS, graph_time_on
 from repro_torch.core.executor import build_executable, logical_devices
 from repro_torch.core.monitor import MonitorConfig, OnlineMonitor
 from repro_torch.models import model as M
-from repro_torch.serving.engine import ServingEngine, requests_from_trace
+from repro_torch.serving.engine import (ServingEngine, requests_from_trace,
+                                        serve_pd)
 from repro_torch.serving.workload import poisson_trace, trace_stats
 
 ap = argparse.ArgumentParser()
@@ -127,3 +134,49 @@ print("CALIBRATION " + json.dumps({
 }))
 print(f"monitor: policy={monitor.policy} switches={monitor.switches}")
 print("sample output tokens:", reqs[0].output)
+
+# --- phase-split: two-engine prefill -> transfer -> decode handoff ---- #
+# Engine P runs only prefills and exports each request's KV/recurrent
+# state; engine D starts decode-only sessions from the imported state.
+# Serial: the whole state after the prefill.  Streamed: the prefill
+# engine runs 4-token chunks and yields each (layer, chunk) shard as it
+# is computed; D installs shards as they arrive and starts decoding when
+# the last one lands (a ring-buffer model ships each layer's ring whole).
+print("\n--- phase-split handoff (prefill engine -> decode engine) ---")
+ENGINE_KW = {"slots": SLOTS, "max_len": MAX_LEN, "device": dev}
+pd_trace = poisson_trace(rate=40.0, num_requests=6, seed=3)
+
+
+def pd_requests():
+    return requests_from_trace(pd_trace, cfg.vocab_size,
+                               max_prompt=PROMPT_CAP, max_new=NEW_CAP,
+                               time_scale=0.0)
+
+
+single = pd_requests()
+ServingEngine(cfg, params, **ENGINE_KW).run(single)
+
+
+def run_pd(requests, streamed):
+    """One prefill engine and one decode engine through the reference
+    spec's loop (``serve_pd``); returns the decode engine's stats, the
+    wire bytes and the shards."""
+    pre = ServingEngine(cfg, params, prefill_chunk=4 if streamed else None,
+                        **ENGINE_KW)
+    dec = ServingEngine(cfg, params, sync_every=4, **ENGINE_KW)
+    wire, shards, _ = serve_pd(pre, dec, requests, streamed)
+    return dec.stats.summary(), wire, shards
+
+
+for streamed in (False, True):
+    split = pd_requests()
+    t0 = time.perf_counter()
+    summary, wire_bytes, n_shards = run_pd(split, streamed)
+    wall = time.perf_counter() - t0
+    match = all(a.output == b.output for a, b in zip(single, split))
+    kind = "streamed" if streamed else "serial"
+    print(f"{kind}: requests={len(split)}  KV wire bytes={wire_bytes}  "
+          f"shards={n_shards}  wall={wall * 1e3:.1f}ms")
+    print(f"{kind}: decode-only engine: {summary}")
+    print(f"{kind} handoff bit-identical to single engine: {match}")
+    assert match, f"{kind} handoff diverged from the single-engine run"

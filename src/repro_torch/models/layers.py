@@ -20,8 +20,7 @@ window)`` slots: position p lives in slot ``p % T``.
 Ported: the dense, MoE, ssm (rwkv6) and hybrid (zamba2) families.  Not
 ported yet: M-RoPE, logit softcap, expert-parallel MoE
 (``moe_impl="ep"``) and the encdec/vlm families (``check_supported``
-raises ``NotImplementedError``); chunked prefill at a cache offset
-(absent).
+raises ``NotImplementedError``).
 """
 from __future__ import annotations
 
@@ -105,14 +104,23 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               rope: Tuple[torch.Tensor, torch.Tensor],
               kv_cache: Dict[str, torch.Tensor],
-              decode_pos: Optional[DecodePos] = None) -> torch.Tensor:
+              decode_pos: Optional[DecodePos] = None,
+              offset: Optional[int] = None) -> torch.Tensor:
     """GQA attention over one layer's cache ``{"k", "v"}`` (B, T, Hkv, D);
     ``rope`` holds the tables of this call's positions.
 
-    * ``decode_pos`` None: prefill fill — this prompt's K/V go to cache
-      slots [0, S) (a ring buffer shorter than S keeps the last T
-      tokens, each at slot ``position % T``) and the queries attend
-      causally, within ``cfg.sliding_window``, over the prompt (K2).
+    * ``decode_pos`` and ``offset`` None: prefill fill — this prompt's
+      K/V go to cache slots [0, S) (a ring buffer shorter than S keeps
+      the last T tokens, each at slot ``position % T``) and the queries
+      attend causally, within ``cfg.sliding_window``, over the prompt
+      (K2).
+    * ``offset`` given: one chunk of a chunked prefill at positions
+      [offset, offset + S) — its K/V go to slots [offset, offset + S)
+      and the queries attend causally over the filled prefix
+      [0, offset + S) (K2 at ``q_offset=offset``).  The reference
+      attends over the whole cache; every slot past the prefix is
+      masked causally, so the prefix gives the same result.  A ring
+      buffer raises: its slot layout wraps at the window.
     * ``decode_pos`` given: decode (S == 1) — a ``DecodePos`` of the
       step; this token's K/V are written at each row's slot and the
       query attends over the row's first ``lengths`` cache slots (K1).
@@ -136,6 +144,19 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         _dyn_update(kv_cache["v"], v, decode_pos)
         out = FA.decode_attention(q[:, 0].contiguous(), kv_cache["k"],
                                   kv_cache["v"], decode_pos.lengths)[:, None]
+    elif offset is not None:
+        if cfg.sliding_window is not None:
+            raise ValueError("chunked prefill is undefined for ring-buffer "
+                             "SWA caches")
+        end = offset + S
+        kc, vc = kv_cache["k"], kv_cache["v"]
+        kc[:, offset:end] = k.to(kc.dtype)
+        vc[:, offset:end] = v.to(vc.dtype)
+        # K2 reads dense (B, Skv, Hkv, D): a prefix of B > 1 rows is a
+        # strided view, so it is copied
+        out = FA.prefill_attention(q, kc[:, :end].contiguous(),
+                                   vc[:, :end].contiguous(), q_offset=offset,
+                                   window=None)
     else:
         _fill(kv_cache["k"], k)
         _fill(kv_cache["v"], v)
@@ -200,6 +221,20 @@ def make_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
         else min(max_len, cfg.sliding_window)
     L = cfg.num_layers if layers is None else layers
     shape = (L, batch, T, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
+
+
+def make_kv_block_pool(cfg: ModelConfig, pool_blocks: int,
+                       block_tokens: int, device: torch.device,
+                       layers: Optional[int] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """Zero-initialized paged KV pool (L, P, bt, Hkv, D): the per-slot
+    batch axis becomes a flat block axis, so a session's KV lives in
+    ``ceil(tokens / block_tokens)`` pool blocks named by its block
+    table."""
+    L = cfg.num_layers if layers is None else layers
+    shape = (L, pool_blocks, block_tokens, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
 

@@ -4,8 +4,12 @@
 Entry points:
   init_params(cfg, generator=, device=)      parameters on the device
   init_cache(cfg, batch, max_len, device=)    zero cache
-  prefill(params, cfg, tokens, cache, last_pos=)   fill cache, logits
+  prefill(params, cfg, tokens, cache, last_pos=, offset=)
+                                             fill cache (or one chunk), logits
+  iter_prefill_chunks / prefill_chunked      a prefill as fixed-size chunks
   decode_step(params, cfg, tokens, cache, pos)     one token per row
+  export_kv / import_kv and their per-layer shards, pack_kv_blocks /
+  gather_kv_blocks                           move one session's state
 
 Parameters are the JAX pytree with the stacked ``layers`` leaves split
 into a Python list of per-layer dicts (the hybrid's one ``shared_attn``
@@ -20,11 +24,16 @@ same object).  A recurrent state integrates every token it is given, so
 ssm/hybrid prompts in one ``prefill`` must have equal lengths (the
 engine groups them so).  Entry points run on the card unless ``device``
 names another; with no CUDA present the default raises.
+
+The state movers write the cache in place (``copy_`` into the existing
+tensors), so a cache object keeps its storage for its lifetime; every
+exporter returns copies (a torch slice is a view, and the slot it came
+from is written again by its next occupant).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.utils._pytree as pytree
@@ -111,6 +120,7 @@ def _region(tagged: bool, block: str, layer: int):
 def _dense_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
                  rope, cache: Dict[str, torch.Tensor],
                  decode_pos: Optional[L.DecodePos] = None,
+                 offset: Optional[int] = None,
                  layer_idx: int = -1, tagged: bool = False) -> torch.Tensor:
     """A decoder block (attention + MLP or MoE); also the hybrid's shared
     attention block, whose parameters have the same structure.  With
@@ -119,7 +129,7 @@ def _dense_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
     xin = L.rms_norm(lp["ln1"], x, cfg.norm_eps)
     with _region(tagged, "attention", layer_idx):
         h = L.attention(lp["attn"], xin, cfg, rope=rope, kv_cache=cache,
-                        decode_pos=decode_pos)
+                        decode_pos=decode_pos, offset=offset)
     x = x + h
     y_in = L.rms_norm(lp["ln2"], x, cfg.norm_eps)
     if cfg.family == "moe":
@@ -168,9 +178,13 @@ def _layer_state(tree: Dict[str, torch.Tensor], i: int
 def _run_layers(params: Params, cfg: ModelConfig, x: torch.Tensor,
                 cache: Params, positions: torch.Tensor,
                 decode_pos: Optional[L.DecodePos] = None,
+                offset: Optional[int] = None,
                 tagged: bool = False) -> torch.Tensor:
     """The layer stack; with ``tagged`` each block's kernels carry its
-    block and layer (the hybrid's shared block: the index of its use)."""
+    block and layer (the hybrid's shared block: the index of its use).
+    ``offset``: a prefill chunk's first position (attention's chunk
+    mode); recurrent states carry over through the cache by
+    construction."""
     if cfg.family == "ssm":
         for i, lp in enumerate(params["layers"]):
             x = _rwkv_block(lp, x, cfg, _layer_state(cache["rwkv"], i),
@@ -185,7 +199,8 @@ def _run_layers(params: Params, cfg: ModelConfig, x: torch.Tensor,
         for gi in range(cfg.num_layers // k):
             x = _dense_block(params["shared_attn"], x, cfg, rope=rope,
                              cache=_layer_state(kv, gi),
-                             decode_pos=decode_pos, layer_idx=gi,
+                             decode_pos=decode_pos, offset=offset,
+                             layer_idx=gi,
                              tagged=tagged)
             for i in range(gi * k, (gi + 1) * k):
                 x = _mamba_block(params["layers"][i], x, cfg,
@@ -194,7 +209,8 @@ def _run_layers(params: Params, cfg: ModelConfig, x: torch.Tensor,
         return x
     for i, lp in enumerate(params["layers"]):
         x = _dense_block(lp, x, cfg, rope=rope, cache=_layer_state(kv, i),
-                         decode_pos=decode_pos, layer_idx=i, tagged=tagged)
+                         decode_pos=decode_pos, offset=offset, layer_idx=i,
+                         tagged=tagged)
     return x
 
 
@@ -205,6 +221,7 @@ def _embed(params: Params, cfg: ModelConfig,
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache: Params, *, last_pos: Optional[torch.Tensor] = None,
+            offset: Optional[int] = None,
             tagged: bool = False) -> Tuple[torch.Tensor, Params]:
     """Process prompts ``tokens`` (B, S) from a fresh cache: fill KV
     slots [0, S) of every attention layer and carry every recurrent
@@ -212,17 +229,26 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     ``last_pos`` (default: the final column) with the cache.  Attention
     families take right-padded rows; recurrent ones need equal-length
     rows, since a pad token would enter the state.  ``tagged`` marks each
-    block's kernels for the Tessera analyzer (``core.marker``)."""
+    block's kernels for the Tessera analyzer (``core.marker``).
+
+    ``offset`` (a Python int) switches to chunk mode: ``tokens`` are the
+    prompt slice at positions [offset, offset + S) and the cache holds
+    the state of the preceding chunks; ``last_pos`` is chunk-relative.
+    Ring-buffer (sliding-window) caches are not chunkable."""
     B, S = tokens.shape
+    off = 0 if offset is None else int(offset)
+    if offset is not None and cfg.sliding_window is not None:
+        raise ValueError("chunked prefill is undefined for ring-buffer SWA "
+                         "caches")
     if "kv" in cache:
         T = cache["kv"]["k"].shape[2]
-        if S > T and cfg.sliding_window is None:
-            raise ValueError(f"prefill of {S} tokens exceeds the cache's "
-                             f"{T} slots")
-    positions = torch.arange(S, dtype=torch.int32,
+        if off + S > T and cfg.sliding_window is None:
+            raise ValueError(f"prefill of tokens [{off}, {off + S}) exceeds "
+                             f"the cache's {T} slots")
+    positions = torch.arange(off, off + S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
     x = _run_layers(params, cfg, _embed(params, cfg, tokens), cache,
-                    positions, tagged=tagged)
+                    positions, offset=offset, tagged=tagged)
     if last_pos is None:
         xl = x[:, -1:]
     else:
@@ -249,3 +275,205 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                     pos[:, None], decode_pos, tagged=tagged)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg)[:, 0], cache
+
+
+# --------------------------------------------------------------------- #
+# Chunked prefill
+# --------------------------------------------------------------------- #
+def iter_prefill_chunks(params: Params, cfg: ModelConfig,
+                        tokens: torch.Tensor, cache: Params, *,
+                        chunk_size: int,
+                        last_pos: Optional[torch.Tensor] = None,
+                        prefill_call: Optional[Callable] = None
+                        ) -> Iterator[Tuple[int, int, torch.Tensor, Params]]:
+    """Drive ``prefill(offset=)`` over ``chunk_size`` slices of
+    ``tokens`` (B, S), yielding ``(t0, t1, logits, cache)`` after each:
+    ``logits`` is each row's last-position selection over the chunks so
+    far, so the final yield carries :func:`prefill`'s result.  The engine
+    steps its decode slots between yields and the streamed handoff ships
+    each chunk's (layer, chunk) K/V at a yield.  ``prefill_call(cache,
+    tokens_chunk, offset, rel_last) -> (logits, cache)`` replaces the
+    plain chunk call.  Nothing here reads the device on the host."""
+    B, S = tokens.shape
+    if chunk_size < 1:
+        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+    if cfg.sliding_window is not None:
+        raise ValueError("chunked prefill is undefined for ring-buffer SWA "
+                         "caches")
+    if prefill_call is None:
+        def prefill_call(c, t, off, lp):
+            return prefill(params, cfg, t, c, offset=off, last_pos=lp)
+    last = torch.full((B,), S - 1, dtype=torch.int32, device=tokens.device) \
+        if last_pos is None else last_pos.to(torch.int32)
+    logits = None
+    for t0 in range(0, S, chunk_size):
+        t1 = min(t0 + chunk_size, S)
+        rel = torch.clamp(last - t0, 0, t1 - t0 - 1)
+        lg, cache = prefill_call(cache, tokens[:, t0:t1], t0, rel)
+        # keep each row's logits from the chunk that holds its last
+        # position (a row whose prompt ended earlier ignores later ones)
+        sel = (last >= t0) & (last < t1)
+        logits = lg if logits is None else torch.where(sel[:, None], lg,
+                                                       logits)
+        yield t0, t1, logits, cache
+
+
+def prefill_chunked(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                    cache: Params, *, chunk_size: int,
+                    last_pos: Optional[torch.Tensor] = None,
+                    prefill_call: Optional[Callable] = None
+                    ) -> Tuple[torch.Tensor, Params]:
+    """A whole-prompt prefill as fixed-size chunks: the same logits and
+    cache as :func:`prefill` (exact for the recurrent families, causal
+    masking for attention).  A ring-buffer cache, or a prompt of one
+    chunk, takes one whole prefill."""
+    if cfg.sliding_window is not None or chunk_size >= tokens.shape[1]:
+        return prefill(params, cfg, tokens, cache, last_pos=last_pos)
+    logits = None
+    for _, _, logits, cache in iter_prefill_chunks(
+            params, cfg, tokens, cache, chunk_size=chunk_size,
+            last_pos=last_pos, prefill_call=prefill_call):
+        pass
+    return logits, cache
+
+
+# --------------------------------------------------------------------- #
+# Per-request state movers (handoff, park/activate, migration).  A cache
+# is {component: {leaf: (L, B, ...)}}; attention KV leaves are
+# (L, B, T, Hkv, D).  Exporters return copies; importers write in place.
+# --------------------------------------------------------------------- #
+def export_kv(cfg: ModelConfig, cache: Params, slot: int,
+              length: Optional[int] = None) -> Params:
+    """Row ``slot`` of a batched cache as a batch-1 state of the same
+    structure, copied.  Attention KV is trimmed to its first ``length``
+    tokens (what a handoff ships); a ring buffer (sliding window) and
+    recurrent state ship whole."""
+    trim = length is not None and cfg.sliding_window is None
+    out: Params = {}
+    for key, leaves in cache.items():
+        out[key] = {name: (a[:, slot:slot + 1, :length] if key == "kv" and trim
+                           else a[:, slot:slot + 1]).clone()
+                    for name, a in leaves.items()}
+    return out
+
+
+def import_kv(cfg: ModelConfig, cache: Params, slot: int,
+              state: Params) -> Params:
+    """Write an exported batch-1 state into row ``slot`` of ``cache`` in
+    place (the inverse of :func:`export_kv`; attention KV fills the first
+    T slots of the row).  Returns ``cache``."""
+    for key, leaves in state.items():
+        for name, val in leaves.items():
+            full = cache[key][name]
+            if key == "kv":
+                full[:, slot:slot + 1, :val.shape[2]].copy_(val)
+            else:
+                full[:, slot:slot + 1].copy_(val)
+    return cache
+
+
+def state_leaves(tree: Any) -> Iterator[torch.Tensor]:
+    """The tensors of a nested dict in sorted key order (the order in
+    which a JAX pytree flattens a dict)."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from state_leaves(tree[key])
+    else:
+        yield tree
+
+
+def kv_state_bytes(state: Params) -> int:
+    """Wire size of an exported state (or of one shard)."""
+    return sum(t.numel() * t.element_size() for t in state_leaves(state))
+
+
+def cache_layer_counts(cache: Params) -> Dict[str, int]:
+    """Leading (layer) dimension of each cache component (a hybrid's
+    shared-attention KV has fewer layers than its mamba state)."""
+    return {key: next(iter(leaves.values())).shape[0]
+            for key, leaves in cache.items()}
+
+
+def export_kv_shard(cfg: ModelConfig, cache: Params, slot: int, key: str,
+                    layer: int, t0: Optional[int] = None,
+                    t1: Optional[int] = None) -> Params:
+    """One layer of one row's component ``key``, copied; for attention
+    KV without a window, only the tokens [t0, t1) when ``t0`` is given
+    (a ring buffer and recurrent state ship the whole layer)."""
+    out = {}
+    for name, a in cache[key].items():
+        sub = a[layer:layer + 1, slot:slot + 1]
+        if key == "kv" and t0 is not None and cfg.sliding_window is None:
+            sub = sub[:, :, t0:t1]
+        out[name] = sub.clone()
+    return out
+
+
+def import_kv_window(cfg: ModelConfig, cache: Params, slot: int,
+                     layer0: int, shards, t0: int = 0) -> Params:
+    """Install attention-KV shards of the layers ``layer0, layer0 + 1,
+    ...``, all over the token window starting at ``t0``, with one copy
+    per leaf.  In place; returns ``cache``."""
+    for name in ("k", "v"):
+        vals = torch.cat([s[name] for s in shards], dim=0)
+        n, T = vals.shape[0], vals.shape[2]
+        cache["kv"][name][layer0:layer0 + n, slot:slot + 1,
+                          t0:t0 + T].copy_(vals)
+    return cache
+
+
+def import_kv_shard(cfg: ModelConfig, cache: Params, slot: int, key: str,
+                    layer: int, shard: Params, t0: int = 0) -> Params:
+    """Install one exported layer shard into row ``slot``, in place (the
+    inverse of :func:`export_kv_shard`).  Returns ``cache``."""
+    for name, val in shard.items():
+        full = cache[key][name]
+        if key == "kv" and cfg.sliding_window is None:
+            T = val.shape[2]
+            full[layer:layer + 1, slot:slot + 1, t0:t0 + T].copy_(val)
+        else:
+            full[layer:layer + 1, slot:slot + 1].copy_(val)
+    return cache
+
+
+# --------------------------------------------------------------------- #
+# Paged KV blocks over a shared (layer, block) pool: one block id spans
+# every layer.  pack -> gather is exact (same dtype, no arithmetic).
+# --------------------------------------------------------------------- #
+def kv_block_bytes(cfg: ModelConfig, block_tokens: int,
+                   layers: Optional[int] = None) -> int:
+    """Bytes one pool block holds across all layers (K and V)."""
+    n = cfg.num_layers if layers is None else layers
+    itemsize = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    return 2 * n * block_tokens * cfg.num_kv_heads * cfg.head_dim * itemsize
+
+
+def pack_kv_blocks(pool: Params, state: Params,
+                   block_ids: List[int]) -> Params:
+    """Copy a batch-1 attention-KV state (L, 1, T, Hkv, D) into pool
+    blocks ``block_ids``, in place; T is zero-padded to the blocks'
+    capacity.  Returns ``pool``."""
+    ids = torch.tensor(block_ids, dtype=torch.long, device=pool["k"].device)
+    nb, bt = len(block_ids), pool["k"].shape[2]
+    for c in ("k", "v"):
+        val = state[c][:, 0]                               # (L, T, Hkv, D)
+        n, T = val.shape[0], val.shape[1]
+        blocks = torch.zeros((n, nb * bt) + tuple(val.shape[2:]),
+                             dtype=pool[c].dtype, device=pool[c].device)
+        blocks[:, :T] = val[:, :nb * bt]
+        pool[c][:, ids] = blocks.view(n, nb, bt, *val.shape[2:])
+    return pool
+
+
+def gather_kv_blocks(pool: Params, block_ids: List[int],
+                     length: int) -> Params:
+    """The inverse of :func:`pack_kv_blocks`: blocks ``block_ids`` as a
+    batch-1 state (L, 1, length, Hkv, D), a new tensor per leaf."""
+    ids = torch.tensor(block_ids, dtype=torch.long, device=pool["k"].device)
+    out = {}
+    for c in ("k", "v"):
+        blocks = pool[c][:, ids]                           # (L, nb, bt, ...)
+        n, nb, bt = blocks.shape[:3]
+        out[c] = blocks.reshape(n, nb * bt, *blocks.shape[3:])[:, :length] \
+            .unsqueeze(1)
+    return out

@@ -19,15 +19,37 @@
     reach the host once per ``sync_every`` steps,
   * greedy (argmax, int32) or temperature sampling from a
     ``torch.Generator`` on the engine's device,
-  * TTFT is stamped only after the device has finished the prefill.
+  * TTFT is stamped only after the device has finished the prefill,
+  * paged KV residency (``kv_block_tokens``, ``kv_pool_blocks``, ``spill``,
+    ``preempt_priority``; ``serving/kvpool.py``): sessions reserve blocks
+    of a shared pool, not slots, so more sessions are resident than there
+    are slots.  They time-slice through the slots at sync boundaries
+    (park / activate, round robin by ``sync_every`` steps), a request of
+    higher ``priority`` preempts a lower one, and idle parked sessions
+    spill to CPU tensors and come back on activation,
+  * chunked admission (``prefill_chunk``): a long prompt is prefilled in
+    chunks at growing offsets, with one decode step of the live slots
+    between chunks,
+  * prefill/decode handoff through ``engine.sessions`` (and the
+    ``prefill_handoff{,_stream}`` / ``admit_handoff{,_stream}`` /
+    ``export_sessions`` / ``import_session`` methods over it): a prefill
+    engine exports a session's state, whole or as (layer, chunk) shards
+    while later chunks still run, and a decode engine imports it into a
+    slot and continues with the same greedy tokens; ``serve_pd`` runs the
+    reference deployment spec's prefill -> decode loop over a pair of
+    engines.
+
+With ``kv_block_tokens`` and ``prefill_chunk`` None the engine is the
+fixed-slot engine: the same launches, and no host sync in a decode step.
+Every state mover writes the engine's cache in place, so its tensors keep
+their storage for the engine's lifetime.
 
 Served: the dense, MoE, ssm (rwkv6) and hybrid (zamba2) families.
 ``decode_fn(params, cache, tokens, pos) -> (logits, cache)`` replaces the
 model's decode step (e.g. a Tessera ``StagedExecutable``, or a function
 choosing one by the online monitor's policy); ``prefill_fn(params,
 cache, tokens) -> (logits, cache)`` replaces its prefill, one request
-per admission at its exact length.  Out of this slice: paged KV, chunked
-prefill, sessions and handoff.
+per admission at its exact length.
 
 Accounting note: completion times are observed at sync boundaries, so a
 request's ``finished`` stamp can be up to ``sync_every - 1`` decode steps
@@ -46,6 +68,8 @@ from repro_torch import DeviceLike, default_generator, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.serving.kvpool import (PagedKvCache, SessionManager,
+                                        SessionState)
 
 # Families whose prefill is exact under right-padding (causal attention
 # never reads positions past the query).  Recurrent state (ssm/hybrid)
@@ -59,6 +83,7 @@ class Request:
     prompt: np.ndarray                  # (S,) int32
     max_new_tokens: int = 16
     arrival: float = 0.0
+    priority: int = 0                   # preemption rank (higher wins)
     # filled by the engine:
     output: List[int] = dataclasses.field(default_factory=list)
     ttft: float = -1.0
@@ -101,10 +126,18 @@ class ServingEngine:
                  temperature: float = 0.0, seed: int = 0,
                  decode_fn: Optional[Callable] = None,
                  prefill_fn: Optional[Callable] = None,
-                 sync_every: int = 8, device: DeviceLike = None):
+                 sync_every: int = 8,
+                 prefill_chunk: Optional[int] = None,
+                 kv_block_tokens: Optional[int] = None,
+                 kv_pool_blocks: Optional[int] = None,
+                 spill: bool = True, preempt_priority: bool = True,
+                 device: DeviceLike = None):
         L.check_supported(cfg)
         if sync_every < 1:
             raise ValueError(f"sync_every must be >= 1, got {sync_every}")
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got "
+                             f"{prefill_chunk}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -113,6 +146,7 @@ class ServingEngine:
         self.eos_id = eos_id
         self.temperature = float(temperature)
         self.sync_every = sync_every
+        self.prefill_chunk = prefill_chunk
         self._decode_custom = decode_fn
         self._prefill_custom = prefill_fn
         self.generator = default_generator(self.device, seed)
@@ -131,6 +165,25 @@ class ServingEngine:
         # upper bound on decode steps any live slot can still take
         self._max_remaining = sync_every
         self._clock: Optional[Callable[[], float]] = None
+        # Paged KV residency: sessions beyond the dense decode batch park
+        # their state in a shared block pool and time-slice through the
+        # slots at sync boundaries.  With kv_block_tokens None the engine
+        # is the fixed-slot engine (self._paged is None everywhere).
+        self.spill = spill
+        self.preempt_priority = preempt_priority
+        self._ran = [0] * slots         # decode steps since activation
+        self._admitting: frozenset = frozenset()   # slots mid-admission
+        if kv_block_tokens is not None:
+            pool_blocks = kv_pool_blocks if kv_pool_blocks is not None \
+                else slots * (max_len // kv_block_tokens)
+            self._paged: Optional[PagedKvCache] = PagedKvCache(
+                cfg, pool_blocks, kv_block_tokens, max_len,
+                device=self.device)
+        else:
+            if kv_pool_blocks is not None:
+                raise ValueError("kv_pool_blocks requires kv_block_tokens")
+            self._paged = None
+        self.sessions = SessionManager(self)
 
     # ------------------------------------------------------------------ #
     def _now(self, now: Optional[float]) -> float:
@@ -139,7 +192,41 @@ class ServingEngine:
         return now if now is not None else 0.0
 
     def _any_active(self) -> bool:
-        return any(r is not None for r in self.active)
+        if any(r is not None for r in self.active):
+            return True
+        return self._paged is not None and bool(self._paged.parked())
+
+    def _ready(self, now: Optional[float]) -> float:
+        """Wait for the device, then read the clock: a first token exists
+        only once its prefill has finished."""
+        _wait(self.device)
+        return self._now(now)
+
+    def _sample_host(self, logits: torch.Tensor) -> np.ndarray:
+        return self._sample(logits).cpu().numpy()
+
+    def _cursors(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """pos, last_tok, budget on the host (one copy; a host sync)."""
+        c = torch.stack([self.pos, self.last_tok, self.budget]).cpu().numpy()
+        return c[0], c[1], c[2]
+
+    def _set_cursor(self, slot: int, last_tok: int, pos: int,
+                    budget: int) -> None:
+        """Make ``slot`` live at the given decode cursor."""
+        self.pos[slot] = pos
+        self.last_tok[slot] = last_tok
+        self.budget[slot] = budget
+        self.active_mask[slot] = True
+
+    def _prefill_len(self, longest: int) -> int:
+        """The admission length S of a group whose longest prompt is
+        ``longest``: a multiple of 8 for attention families (bucketed, as
+        the JAX engine pads for its jit), the exact length for recurrent
+        ones and for an injected prefill."""
+        if self.cfg.family in _PAD_SAFE_FAMILIES \
+                and self._prefill_custom is None:
+            return min(-(-longest // 8) * 8, self.max_len - 1)
+        return longest
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         """(B, V) logits -> (B,) int32 tokens, on the device."""
@@ -178,19 +265,51 @@ class ServingEngine:
     # ------------------------------------------------------------------ #
     # Admission: batched multi-request prefill
     # ------------------------------------------------------------------ #
+    def admit(self, req: Request, now: float) -> bool:
+        """Admit one request (see :meth:`admit_batch`)."""
+        return self.admit_batch([req], now) == 1
+
     def admit_batch(self, reqs: Sequence[Request], now: float) -> int:
         """Admit up to len(free slots) requests through one padded
-        prefill.  Returns the number admitted."""
+        prefill per group (paged: as many as the pool's blocks hold, in
+        waves of at most ``slots``).  Returns the number admitted."""
         # settle any buffered window first: admission must see fresh
         # slot state
         self.sync(now)
+        if self._paged is not None:
+            # each wave prefills into the dense batch, then parks into the
+            # pool to free the slots for the next wave
+            left = list(reqs)
+            admitted = 0
+            while left:
+                pairs = self._paged_admit(left, now)
+                if not pairs:
+                    break
+                # the whole wave's slots are held until its last group is
+                # in: a chunked group runs the scheduler between chunks,
+                # which must not activate a parked session into the slot
+                # of a later group of the same wave
+                self._admitting = frozenset(s for s, _ in pairs)
+                try:
+                    for group in self._admission_groups(pairs):
+                        self._admit_group(group, now)
+                finally:
+                    self._admitting = frozenset()
+                admitted += len(pairs)
+                left = left[len(pairs):]
+                if left:
+                    self.sync(now)      # settle before parking
+                    wave = {id(r) for _, r in pairs}
+                    for s in range(self.slots):
+                        if self.active[s] is not None \
+                                and id(self.active[s]) in wave:
+                            self._park_slot(s, self._now(now))
+            self._recompute_remaining()
+            return admitted
         free = [s for s in range(self.slots) if self.active[s] is None]
         take = list(reqs[:len(free)])
         for r in take:
-            if len(r.prompt) >= self.max_len:
-                raise ValueError(f"request {r.rid}: prompt of "
-                                 f"{len(r.prompt)} tokens does not fit "
-                                 f"max_len {self.max_len}")
+            self._check_prompt(r)
         pairs = list(zip(free, take))
         if not pairs:
             return 0
@@ -198,6 +317,11 @@ class ServingEngine:
             self._admit_group(group, now)
         self._recompute_remaining()
         return len(pairs)
+
+    def _check_prompt(self, r: Request) -> None:
+        if len(r.prompt) >= self.max_len:
+            raise ValueError(f"request {r.rid}: prompt of {len(r.prompt)} "
+                             f"tokens does not fit max_len {self.max_len}")
 
     def _admission_groups(self, pairs: List[Tuple[int, Request]]
                           ) -> List[List[Tuple[int, Request]]]:
@@ -214,6 +338,137 @@ class ServingEngine:
             by_len.setdefault(len(r.prompt), []).append((s, r))
         return list(by_len.values())
 
+    def _paged_admit(self, reqs: List[Request],
+                     now: float) -> List[Tuple[int, Request]]:
+        """Paged admission, gated by free blocks, not free slots.  Each
+        request reserves blocks for its worst-case token capacity; under
+        pressure idle parked sessions spill to the host (LRU), and with
+        ``preempt_priority`` a strictly lower-priority active session is
+        parked (freeing its slot) and spilled (freeing its blocks).
+        Returns the admitted (slot, request) pairs."""
+        t = self._now(now)
+        taken: set = set()
+        pairs: List[Tuple[int, Request]] = []
+
+        def free_slot() -> Optional[int]:
+            for s in range(self.slots):
+                if self.active[s] is None and s not in taken:
+                    return s
+            return None
+
+        for r in reqs:
+            self._check_prompt(r)
+            cap = min(len(r.prompt) + r.max_new_tokens, self.max_len)
+            # blocks first: a request that cannot reserve memory must not
+            # disturb any resident's slot
+            reserved = self._paged.reserve(r, cap, spill=self.spill)
+            while not reserved and self.preempt_priority and self.spill:
+                # block pressure: park and spill a strictly lower-priority
+                # active session, whose blocks go to the host
+                victim = self._preempt_victim(r.priority, taken)
+                if victim is None:
+                    break
+                vrid = self.active[victim].rid
+                self._park_slot(victim, t)
+                self._paged.spill(vrid)
+                self._paged.preemptions += 1
+                reserved = self._paged.reserve(r, cap, spill=self.spill)
+            if not reserved:
+                break
+            slot = free_slot()
+            if slot is None:
+                # no free slot: park a resident of <= priority (equal
+                # priorities time-slice; a higher one is never displaced
+                # by admission)
+                victim = self._preempt_victim(r.priority, taken,
+                                              allow_equal=True)
+                if victim is None:
+                    self._paged.release(r.rid)   # roll the blocks back
+                    break
+                self._park_slot(victim, t)
+                self._paged.preemptions += 1
+                slot = victim
+            taken.add(slot)
+            pairs.append((slot, r))
+        return pairs
+
+    def _preempt_victim(self, incoming_prio: int, taken=(),
+                        allow_equal: bool = False) -> Optional[int]:
+        """Slot of the lowest-priority active session below (with
+        ``allow_equal``: at or below) ``incoming_prio``, ties broken
+        toward the longest-running.  Slots in ``taken`` (assigned in this
+        admission) are never victims.  None when nothing is
+        preemptible."""
+        if not self.preempt_priority and not allow_equal:
+            return None
+        cands = []
+        for s in range(self.slots):
+            req = self.active[s]
+            if req is None or s in taken:
+                continue
+            if req.priority < incoming_prio or \
+                    (allow_equal and req.priority <= incoming_prio):
+                cands.append((req.priority, -self._ran[s], s))
+        return min(cands)[2] if cands else None
+
+    # ------------------------------------------------------------------ #
+    # Paged scheduling: park / activate through the block pool
+    # ------------------------------------------------------------------ #
+    def _park_slot(self, slot: int, t: float) -> None:
+        """Preempt an active slot into the pool: export its state at the
+        decode cursor and pack it into the session's blocks.  Only at a
+        settled window (a sync boundary); the round trip is exact."""
+        if self._cols:
+            raise RuntimeError("parking requires a settled window")
+        req = self.active[slot]
+        pos, last, budget = self._cursors()
+        p = int(pos[slot])
+        state = M.export_kv(self.cfg, self.cache, slot, p)
+        self._paged.park(req.rid, state, int(last[slot]), p,
+                         int(budget[slot]), t)
+        self.active[slot] = None
+        self.active_mask[slot] = False
+        self._ran[slot] = 0
+
+    def _activate_parked(self, rid: int, slot: int, t: float) -> None:
+        """Resume a parked session into a free slot (prefetching it from
+        the host if needed) at its decode cursor."""
+        req = self._paged.resident[rid].req
+        state, last_tok, pos, budget = self._paged.activate(rid, t)
+        M.import_kv(self.cfg, self.cache, slot, state)
+        self._set_cursor(slot, last_tok, pos, budget)
+        self.active[slot] = req
+        self._ran[slot] = 0
+
+    def _schedule(self, now: Optional[float]) -> None:
+        """Round-robin time slicing at sync boundaries: parked sessions
+        activate into free slots in park order; when none is free, active
+        sessions that have run their quantum (``sync_every`` decode steps)
+        rotate out so every resident session makes progress."""
+        runnable = self._paged.parked()
+        if not runnable:
+            return
+        t = self._now(now)
+        changed = False
+        for s in range(self.slots):
+            if not runnable:
+                break
+            if self.active[s] is None and s not in self._admitting:
+                self._activate_parked(runnable.pop(0), s, t)
+                changed = True
+        if runnable:
+            expired = sorted(
+                (s for s in range(self.slots)
+                 if self.active[s] is not None
+                 and self._ran[s] >= self.sync_every),
+                key=lambda s: -self._ran[s])
+            for s in expired[:len(runnable)]:
+                self._park_slot(s, t)
+                self._activate_parked(runnable.pop(0), s, t)
+                changed = True
+        if changed:
+            self._recompute_remaining()
+
     def _admit_group(self, group: List, now: float) -> None:
         slots_ = [s for s, _ in group]
         reqs = [r for _, r in group]
@@ -223,11 +478,7 @@ class ServingEngine:
         # the batch to a power of two (pad rows are separate rows) and,
         # for attention families only, S to a multiple of 8; a recurrent
         # group has one exact length
-        if self.cfg.family in _PAD_SAFE_FAMILIES \
-                and self._prefill_custom is None:
-            S = min(-(-max(lens) // 8) * 8, self.max_len - 1)
-        else:
-            S = max(lens)
+        S = self._prefill_len(max(lens))
         Gp = min(1 << (G - 1).bit_length(), self.slots)
         toks = np.zeros((Gp, S), np.int32)
         for i, r in enumerate(reqs):
@@ -240,22 +491,28 @@ class ServingEngine:
         # them, since decode writes position pos before attending over
         # [0, pos] (or, in a ring buffer, over every slot only once
         # positions have wrapped, when all of them have been written).
+        # A chunked admission fills the same S slots chunk by chunk.
         cache_g = M.init_cache(self.cfg, Gp, S, device=dev)
+        toks_d = torch.from_numpy(toks).to(dev)
         if self._prefill_custom is not None:
             # one request at its exact length: its logits are the last
             # column's
-            logits, cache_g = self._prefill_custom(
-                self.params, cache_g, torch.from_numpy(toks).to(dev))
+            logits, cache_g = self._prefill_custom(self.params, cache_g,
+                                                   toks_d)
+        elif self._can_chunk(S):
+            # the live decode slots keep streaming between chunks instead
+            # of stalling for the whole prompt
+            logits, cache_g = self._prefill_chunks(
+                cache_g, toks_d, torch.from_numpy(last).to(dev), slots_, now)
         else:
             logits, cache_g = M.prefill(
-                self.params, self.cfg, torch.from_numpy(toks).to(dev),
-                cache_g, last_pos=torch.from_numpy(last).to(dev))
+                self.params, self.cfg, toks_d, cache_g,
+                last_pos=torch.from_numpy(last).to(dev))
         idx = torch.tensor(slots_, dtype=torch.long, device=dev)
         self._write_slots(idx, cache_g, G)
         # honest TTFT: the first token exists only once the device is done
-        _wait(dev)
-        t_ready = self._now(now)
-        first = self._sample(logits).cpu().numpy()[:G]
+        t_ready = self._ready(now)
+        first = self._sample_host(logits)[:G]
         self.stats.prefill_batches += 1
 
         i32 = torch.int32
@@ -292,6 +549,104 @@ class ServingEngine:
                 else:
                     full[:, idx] = grp[:, :rows]
 
+    # ------------------------------------------------------------------ #
+    # Chunked prefill: incremental cache fill with decode interleaving
+    # ------------------------------------------------------------------ #
+    def _can_chunk(self, S: int) -> bool:
+        """Chunked prefill needs the model's own prefill and a cache that
+        is not a ring buffer, and pays only for more than one chunk."""
+        return (self.prefill_chunk is not None
+                and self._prefill_custom is None
+                and self.cfg.sliding_window is None
+                and S > self.prefill_chunk)
+
+    def _prefill_chunks(self, cache_g: Dict[str, Any], toks: torch.Tensor,
+                        last: torch.Tensor, slots_: List[int],
+                        now: Optional[float] = None):
+        """``prefill(offset=)`` over prefill_chunk slices of the padded
+        admission batch, with one decode step of the live slots between
+        chunks, so a long prompt does not freeze them for its whole
+        prefill.  Returns (last-position logits, filled cache), those of
+        one whole prefill.
+
+        Two things differ from the JAX engine, whose chunked admission
+        loses tokens and sessions (ROADMAP, Queue 3): the scheduler does
+        not activate a parked session into the slots ``slots_`` of this
+        group, nor into those of the rest of its wave (``admit_batch``
+        holds them), while it runs, and the steps taken between chunks
+        are settled before the group goes live (otherwise its first
+        tokens sit behind those steps' idle markers and are dropped)."""
+        S = toks.shape[1]
+        logits = None
+        held = self._admitting
+        self._admitting = held | frozenset(slots_)
+        try:
+            for _, t1, logits, cache_g in M.iter_prefill_chunks(
+                    self.params, self.cfg, toks, cache_g,
+                    chunk_size=self.prefill_chunk, last_pos=last,
+                    prefill_call=self._chunk_call):
+                if t1 < S and self._any_active():
+                    self.step(self._now(now))
+        finally:
+            self._admitting = held
+        if self._cols:
+            self._settle(now)
+        return logits, cache_g
+
+    def _chunk_call(self, cache, toks, off, rel):
+        return M.prefill(self.params, self.cfg, toks, cache, offset=off,
+                         last_pos=rel)
+
+    # ------------------------------------------------------------------ #
+    # Session movers over ``engine.sessions`` (kvpool.SessionManager),
+    # in the older wire dicts
+    # ------------------------------------------------------------------ #
+    def prefill_handoff(self, req: Request,
+                        now: Optional[float] = None) -> Dict[str, Any]:
+        """``sessions.prefill``: run ``req``'s prompt here and package its
+        state for a decode engine as a handoff dict."""
+        return self.sessions.prefill(req, now).to_legacy()
+
+    def prefill_handoff_stream(self, req: Request,
+                               now: Optional[float] = None,
+                               chunk_size: Optional[int] = None):
+        """``sessions.stream``: yields the per-(layer, chunk) shard dicts,
+        then the header dict."""
+        for item in self.sessions.stream(req, now, chunk_size):
+            if isinstance(item, SessionState):
+                yield item.to_legacy(header=True)
+            else:
+                yield item.to_legacy()
+
+    def admit_handoff(self, req: Request, handoff: Dict[str, Any],
+                      now: Optional[float] = None) -> bool:
+        """``sessions.restore`` with the first token pending: TTFT is
+        stamped on admission.  Raises on a handoff that finished at
+        prefill; False when no slot is free."""
+        return self.sessions.restore(
+            req, SessionState.from_legacy(handoff, first_token_pending=True),
+            now)
+
+    def admit_handoff_stream(self, req: Request, shards,
+                             now: Optional[float] = None) -> bool:
+        """``sessions.receive`` (which takes the shard dicts too)."""
+        return self.sessions.receive(req, shards, now)
+
+    def export_sessions(self, now: Optional[float] = None
+                        ) -> List[Tuple[Request, Dict[str, Any]]]:
+        """``sessions.checkpoint``: drain every resident session as
+        (request, handoff dict) pairs."""
+        return [(r, st.to_legacy())
+                for r, st in self.sessions.checkpoint(now)]
+
+    def import_session(self, req: Request, handoff: Dict[str, Any],
+                       now: Optional[float] = None) -> bool:
+        """``sessions.restore`` with the first token not pending:
+        migration moves the session, not the client's clock."""
+        return self.sessions.restore(
+            req, SessionState.from_legacy(handoff,
+                                          first_token_pending=False), now)
+
     def warmup(self) -> None:
         """Run one prefill and one decode step so the first real request
         does not pay first-call costs (kernel build, allocator growth).
@@ -323,10 +678,19 @@ class ServingEngine:
         """One decode step over all active slots (idle slots masked).
         Only queues work: tokens and done flags reach the host every
         ``sync_every`` steps."""
-        if not self._any_active():
-            return
+        if not any(r is not None for r in self.active):
+            if self._paged is not None:
+                # no slot decoding but sessions may be parked: settle and
+                # let the scheduler rotate them in
+                self.sync(now)
+            if not any(r is not None for r in self.active):
+                return
         self._cols.append(self._step_fused())
         self.stats.decode_steps += 1
+        if self._paged is not None:
+            for s in range(self.slots):
+                if self.active[s] is not None:
+                    self._ran[s] += 1
         # sync at the cadence, or as soon as every live slot must have
         # exhausted its budget (no masked tail steps at drain)
         if len(self._cols) >= min(self.sync_every, self._max_remaining):
@@ -334,9 +698,15 @@ class ServingEngine:
 
     def sync(self, now: float) -> None:
         """Fetch the buffered tokens/flags (one device-to-host copy for
-        the window) and settle completions on the host."""
-        if not self._cols:
-            return
+        the window) and settle completions on the host.  On a paged engine
+        the settled boundary is also the scheduling point: parked sessions
+        rotate into freed slots here."""
+        if self._cols:
+            self._settle(now)
+        if self._paged is not None:
+            self._schedule(now)
+
+    def _settle(self, now: float) -> None:
         cols = self._cols[0] if len(self._cols) == 1 else \
             torch.stack(self._cols, dim=2)
         window = cols.cpu().numpy().reshape(2, self.slots, -1)
@@ -366,6 +736,8 @@ class ServingEngine:
 
     def _finalize(self, req: Request, now: float) -> None:
         req.finished = now
+        if self._paged is not None:
+            self._paged.release(req.rid)    # no-op if never reserved
         self.stats.completed += 1
         self.stats.ttft.append(req.ttft - req.arrival)
         self.stats.tpot.append(
@@ -384,16 +756,23 @@ class ServingEngine:
             while pending or self._any_active():
                 now = self._clock()
                 if pending and pending[0].arrival <= now \
-                        and None in self.active:
+                        and (None in self.active or self._paged is not None):
                     # admit every due arrival that fits (admit_batch
-                    # settles the buffered window itself)
+                    # settles the buffered window itself); a paged engine
+                    # may also preempt for a due arrival
                     batch = []
                     nfree = self.active.count(None)
+                    if self._paged is not None:
+                        nfree = max(nfree, 1)
                     while (pending and len(batch) < nfree
                            and pending[0].arrival <= self._clock()):
                         batch.append(pending.pop(0))
                     if batch:
-                        self.admit_batch(batch, self._clock())
+                        n = self.admit_batch(batch, self._clock())
+                        if n < len(batch):
+                            # pool pressure refused the tail: requeue it
+                            # (the earliest arrivals, so order holds)
+                            pending = batch[n:] + pending
                 if not self._any_active():
                     if pending:
                         # idle until the next arrival: sleep, don't spin
@@ -406,6 +785,72 @@ class ServingEngine:
         finally:
             self._clock = None
         return self.stats
+
+
+# --------------------------------------------------------------------- #
+def serve_pd(pre: ServingEngine, dec: ServingEngine,
+             requests: Sequence[Request], streamed: bool,
+             on_landed: Optional[Callable[[Request, Dict[str, Any]],
+                                          None]] = None
+             ) -> Tuple[int, int, List[float]]:
+    """The reference deployment spec's prefill -> decode loop
+    (``LaunchedDeployment.run`` for a prefill pool of one engine and a
+    decode pool of one) over ``pre`` and ``dec``, requests in arrival
+    order, run to completion.
+
+    Serial: ``pre.prefill_handoff`` for every request, then
+    ``dec.admit_handoff`` in order, ``dec`` stepping while it is full;
+    ``on_landed(req, handoff)`` is called as each handoff is admitted.
+    Streamed: ``pre.prefill_handoff_stream`` into
+    ``dec.admit_handoff_stream``, ``dec`` stepping until a slot takes the
+    request.  The engines' ``now`` is wall time since the call.  Returns
+    (the state bytes on the wire, the shards streamed, the wall of each
+    handoff: serial, the prefill and export; streamed, the prefill,
+    export and install)."""
+    t0 = time.perf_counter()
+
+    def clock():
+        return time.perf_counter() - t0
+
+    wire = shards = 0
+    walls: List[float] = []
+    ordered = sorted(requests, key=lambda r: (r.arrival, r.rid))
+    if streamed:
+        def counted(gen):
+            nonlocal wire, shards
+            for item in gen:
+                if not item.get("header"):
+                    wire += item["bytes"]
+                    shards += 1
+                yield item
+        for req in ordered:
+            gen = counted(pre.prefill_handoff_stream(req, clock()))
+            while True:
+                t = time.perf_counter()
+                if dec.admit_handoff_stream(req, gen, clock()):
+                    walls.append(time.perf_counter() - t)
+                    break
+                dec.step(clock())       # drain a slot, retry
+    else:
+        handoffs = []
+        for req in ordered:
+            t = time.perf_counter()
+            h = pre.prefill_handoff(req, clock())
+            walls.append(time.perf_counter() - t)
+            if not h["done"]:
+                wire += h["kv_bytes"]
+                handoffs.append((req, h))
+        while handoffs:
+            while handoffs and dec.admit_handoff(*handoffs[0], clock()):
+                req, h = handoffs.pop(0)
+                if on_landed is not None:
+                    on_landed(req, h)
+            if handoffs:
+                dec.step(clock())
+    while dec._any_active():
+        dec.step(clock())
+    dec.sync(clock())
+    return wire, shards, walls
 
 
 # --------------------------------------------------------------------- #

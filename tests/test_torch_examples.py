@@ -30,6 +30,10 @@ def test_serve_pipeline_torch():
     out = _run("serve_pipeline_torch.py")
     assert "'completed': 12" in out
     assert "CALIBRATION {" in out and "monitor: policy=" in out
+    # the phase-split part: serial and streamed prefill -> decode pairs
+    for kind in ("serial", "streamed"):
+        assert f"{kind} handoff bit-identical to single engine: True" in out
+        assert f"{kind}: decode-only engine: {{'completed': 6" in out
 
 
 @pytest.mark.parametrize("policy", ["latency", "throughput"])
