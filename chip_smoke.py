@@ -79,6 +79,25 @@ Phases; any failure raises and the script exits non-zero:
               from the carried state, logits and every final state leaf
               held against one whole prefill at the model's phase-6/7
               tolerance, with K4 / K5 (and K2) launched once per chunk;
+  cluster     after llama3-8b's "paged" checks, with its bf16 weights
+              still loaded, the cluster layer (``serving/spec.py`` and
+              what it stands on): llama3-8b's decode step traced on the
+              card; the deployment DES of two catalog GPU groups on its
+              graph, one Poisson trace simulated twice with identical
+              event logs (its throughput and TTFT are the cost model's);
+              ``spec.compile().launch()`` as a pool of two engines on one
+              set of weights (memory grows by their caches only), group 0
+              drained at t 0 (sessions migrate); the pool again with group
+              0 crashed mid-run and sessions checkpointed to the host
+              (every lost session restored); a serial pair, a streamed
+              pair in 128-token chunks (the "paged" pairs' wire bytes and
+              shards) and a streamed pair under a flaky link (retransmits,
+              corrupted shards caught by checksums, each re-prefilled);
+              ``launch.serve --deployment`` once; ``ElasticExecutor`` on
+              three streams of the card, logits bit-identical to the eager
+              step after each of two device losses; in fp32 at 4 layers
+              the drain, crash and flaky runs give one plain engine's
+              greedy tokens; K1 and K2 launch counts of the phase;
   8. tessera  the Tessera core on the decode step at full width (bf16, B
               4, max_len 1024): the step of all four models traced with
               torch.export (kernel op nodes = launches per step: 32 K1;
@@ -1183,13 +1202,13 @@ def check_completed(what, reqs, cfg) -> None:
                                  f"tokens of {r.max_new_tokens}")
 
 
-def engine_numbers(stats, reqs, wall, adm_wall=None,
+def engine_numbers(s, reqs, wall, adm_wall=None,
                    what="admission") -> str:
-    """TTFT, TPOT and decode tokens/s of one run; with ``adm_wall`` (the
-    wall of each admission, or of each handoff of a prefill -> decode
-    pair) their mean and the decode step's: the rest of the run's wall
-    over its decode steps."""
-    s = stats.summary()
+    """TTFT, TPOT and decode tokens/s of one run from its stats summary
+    ``s`` (``EngineStats.summary()``); with ``adm_wall`` (the wall of
+    each admission, or of each handoff of a prefill -> decode pair)
+    their mean and the decode step's: the rest of the run's wall over
+    its decode steps."""
     decode_tokens = sum(len(r.output) - 1 for r in reqs)
     out = (f"TTFT {s['mean_ttft']:.4f} s, TPOT {s['mean_tpot']:.4f} s, "
            f"{decode_tokens / wall:.1f} decode tok/s ({s['decode_steps']} "
@@ -1341,15 +1360,18 @@ def check_chunk_calls(cfg, calls, admissions, chunk) -> int:
     return at_offset
 
 
-def phase_paged_llama(cfg, params, k) -> dict:
+def phase_paged_llama(cfg, params, k):
     """llama3-8b (bf16, full width): a paged engine that preempts, spills
     and prefetches, a chunked-admission engine and the two prefill ->
     decode pairs serve paged_requests; a 4 x 512 chunked prefill against
-    the whole one.  Returns {"flash_prefill_chunk": K2 launches at an
-    offset > 0 in the chunked engine's run}."""
+    the whole one.  Returns ({"flash_prefill_chunk": K2 launches at an
+    offset > 0 in the chunked engine's run}, {"fixed": the fixed engine's
+    greedy tokens, "serial pd" / "streamed pd": the pair's (wire bytes,
+    shards)}), what the "cluster" phase holds its runs to."""
     M, name = k.M, card()
     fixed = serve_colocated(cfg, params, k, "fixed")
-    lines = {"fixed": engine_numbers(fixed[0].stats, fixed[1], fixed[2],
+    ref = {"fixed": [r.output for r in fixed[1]]}
+    lines = {"fixed": engine_numbers(fixed[0].stats.summary(), fixed[1], fixed[2],
                                      fixed[3])}
 
     # paged: 48 blocks of 64 tokens for sessions of up to 544 tokens
@@ -1369,7 +1391,7 @@ def phase_paged_llama(cfg, params, k) -> dict:
                                eng.stats.prefill_batches, 0)
     if launched != expect:
         raise AssertionError(f"paged launches {launched} vs {expect}")
-    lines["paged"] = engine_numbers(eng.stats, reqs, wall, adm) + (
+    lines["paged"] = engine_numbers(eng.stats.summary(), reqs, wall, adm) + (
         f", {pk.preemptions} preemptions, {pk.spills} spills, "
         f"{pk.prefetches} prefetches, round trip of rid {watched[-1][0]} "
         "bitwise")
@@ -1386,7 +1408,7 @@ def phase_paged_llama(cfg, params, k) -> dict:
     expect = expected_launches(cfg, eng.stats.decode_steps, len(calls), 0)
     if launched != expect:
         raise AssertionError(f"chunked launches {launched} vs {expect}")
-    lines["chunked"] = engine_numbers(eng.stats, reqs, wall, adm)
+    lines["chunked"] = engine_numbers(eng.stats.summary(), reqs, wall, adm)
     log(f"[paged] {cfg.name} on {name}, chunked admission "
         f"({PREFILL_CHUNK}-token chunks): {lines['chunked']}; {len(calls)} "
         "prefill calls "
@@ -1430,13 +1452,14 @@ def phase_paged_llama(cfg, params, k) -> dict:
                                                   streamed)
         kind = "streamed pd" if streamed else "serial pd"
         check_completed(f"{cfg.name} {kind}", reqs, cfg)
-        lines[kind] = engine_numbers(dec.stats, reqs, wall, walls,
+        ref[kind] = (wire, shards)
+        lines[kind] = engine_numbers(dec.stats.summary(), reqs, wall, walls,
                                      "handoff") + (
             f", {wire / 2**20:.1f} MiB on the wire"
             + (f" in {shards} shards" if streamed else ""))
     log(f"[paged] {cfg.name} on {name}: " + "; ".join(
         f"{kind}: {line}" for kind, line in lines.items()))
-    return {"flash_prefill_chunk": at_offset}
+    return {"flash_prefill_chunk": at_offset}, ref
 
 
 def phase_paged_identity(cfg, k) -> None:
@@ -1478,7 +1501,7 @@ def phase_paged_handoff(cfg, params) -> None:
                                          check_state=True)
     check_completed(f"{cfg.name} serial pd", reqs, cfg)
     log(f"[paged] {cfg.name} on {card()}: serial pd: "
-        f"{engine_numbers(dec.stats, reqs, wall, walls, 'handoff')}, "
+        f"{engine_numbers(dec.stats.summary(), reqs, wall, walls, 'handoff')}, "
         f"{wire / 2**20:.1f} MiB on "
         f"the wire ({wire // len(reqs)} bytes a session: the whole ring), "
         "every landed state bitwise equal to its handoff")
@@ -1527,6 +1550,361 @@ def phase_paged_recurrent(cfg, params, k, limit) -> None:
         + f" (held at {limit:.3e}); launches {nc} = {n} x {nw}; wall whole "
         f"{tw:.2f} / {runs[2][3]:.2f} ms, chunked {tc:.2f} / {runs[3][3]:.2f}"
         " ms (first / second call)")
+
+
+# --------------------------------------------------------------------- #
+# cluster: the deployment spec's DES and its engines on the card
+# --------------------------------------------------------------------- #
+CLUSTER_ARCH = "llama3_8b"
+CLUSTER_GROUPS = [["h100", "rtxpro6000"], ["a100", "l40s"]]
+CLUSTER_ANNEAL = 300                  # planner effort per group (the DES)
+DES_REQUESTS = 200
+ELASTIC_SPECS = ("h100", "a100", "l40s")
+# a launched engine may allocate its cache and this much besides (its
+# decode cursors); a copy of llama3-8b's weights would be 15 GiB
+ENGINE_SLACK = 16 * 2 ** 20
+# the streamed pairs: 8 chunks of 128 tokens (the "paged" phase's pair,
+# hence its wire bytes and shards), and 4 of 256 under a flaky link whose
+# seeded draws, on these 8 requests, give 34 retransmits and 3 corrupted
+# shards at 32 layers, 7 and 1 at IDENTITY_LAYERS
+PLAIN_CHUNKS, FLAKY_CHUNKS = 8, 4
+FLAKY_SEED, FLAKY = 10, dict(p=0.1, max_retries=1)
+# the crash run's schedule, as fractions of the drain run's wall: a
+# checkpoint poll every 0.15, group 0 lost at 0.4 and back at 0.6
+CRASH_AT, RECOVER_AT, CKPT_EVERY = 0.4, 0.6, 0.15
+CKPT_DIRTY = 8                        # tokens between a session's copies
+
+
+def cluster_spec(**kw):
+    from repro_torch.serving.spec import DeploymentSpec
+    return DeploymentSpec(groups=CLUSTER_GROUPS, arch=CLUSTER_ARCH,
+                          engine={"slots": B, "max_len": MAX_LEN}, **kw)
+
+
+def launch(spec, cfg, params):
+    """``spec.compile().launch(cfg, params)`` on the card, every engine's
+    decode steps under set_sync_debug_mode("error")."""
+    ld = spec.compile().launch(cfg, params, device=DEV)
+    for eng in ld.engines:
+        no_sync_steps(eng)
+    return ld
+
+
+def serve_launched(ld, cfg, k):
+    """Serve paged_requests through the launched deployment ``ld``.
+    Returns (requests, run stats, wall, the run's launches: the counters'
+    growth over it, so that the phase's totals keep counting)."""
+    reqs = paged_requests(cfg)
+    before = counts(k)
+    t = time.perf_counter()
+    out = ld.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return reqs, out, wall, {n: v - before[n] for n, v in counts(k).items()}
+
+
+def check_pool_launches(cfg, what, out, launched) -> None:
+    """A pool run launches K1 once per layer per decode step and K2 once
+    per layer per admission, summed over its engines."""
+    e = out["engine"]
+    expect = expected_launches(cfg, e["decode_steps"], e["prefill_batches"],
+                               0)
+    if launched != expect:
+        raise AssertionError(f"cluster {what}: launches {launched} vs "
+                             f"{expect}")
+
+
+def check_pair_launches(cfg, what, out, launched) -> None:
+    """A prefill -> decode pair launches K1 once per layer per decode
+    step (the decode engine's), and K2 in its prefills."""
+    steps = out["engine"]["decode_steps"]
+    if launched["flash_decode"] != cfg.num_layers * steps or \
+            not launched["flash_prefill"]:
+        raise AssertionError(f"cluster {what}: launches {launched}, "
+                             f"{steps} decode steps")
+
+
+def cluster_pool(cfg, params, k):
+    """The colocated pool of CLUSTER_GROUPS: launched (the second engine
+    must cost its cache only, no weight), group 0 drained at t 0 while its
+    sessions decode.  Returns (greedy tokens, wall, log line)."""
+    M = k.M
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    ld = launch(cluster_spec(), cfg, params)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - mem0
+    caches = sum(M.kv_state_bytes(e.cache) for e in ld.engines)
+    if grown > caches + ENGINE_SLACK or \
+            any(e.params is not params for e in ld.engines):
+        raise AssertionError(f"cluster pool: launching {len(ld.engines)} "
+                             f"engines allocated {grown} bytes, their "
+                             f"caches {caches}")
+    ld.scale(remove=[0], at=0.0)
+    reqs, out, wall, launched = serve_launched(ld, cfg, k)
+    check_completed(f"{cfg.name} cluster drain", reqs, cfg)
+    check_pool_launches(cfg, "drain", out, launched)
+    if out["migrations"] < 1 or out["routable"] != [False, True]:
+        raise AssertionError(f"cluster drain: {out['migrations']} "
+                             f"migrations, routable {out['routable']}")
+    line = (f"pool of {len(ld.engines)} engines ({B} slots each) on one "
+            f"set of weights (memory_allocated grew by {grown / 2**20:.1f} "
+            f"MiB at launch, the caches {caches / 2**20:.1f} MiB), group 0 "
+            f"drained at t 0: {out['migrations']} sessions migrated, "
+            f"{out['wire_bytes'] / 2**20:.1f} MiB moved, "
+            f"{engine_numbers(out['engine'], reqs, wall)}, launches "
+            f"{launched}")
+    return [r.output for r in reqs], wall, line
+
+
+def cluster_crash(cfg, params, k, span):
+    """The pool with group 0 crashed at CRASH_AT x ``span`` and back at
+    RECOVER_AT x ``span``, sessions checkpointed to the host every
+    CKPT_EVERY x ``span``: every lost session is restored from its
+    checkpoint and every request completes.  Returns (greedy tokens, wall,
+    log line)."""
+    from repro_torch.serving.faults import FaultPlan, RecoveryConfig
+    plan = FaultPlan(seed=0).crash(CRASH_AT * span, group=0,
+                                   recover_at=RECOVER_AT * span)
+    rec = RecoveryConfig(interval=CKPT_EVERY * span,
+                         min_dirty_tokens=CKPT_DIRTY)
+    ld = launch(cluster_spec(), cfg, params).inject(plan, rec)
+    reqs, out, wall, launched = serve_launched(ld, cfg, k)
+    check_completed(f"{cfg.name} cluster crash", reqs, cfg)
+    check_pool_launches(cfg, "crash", out, launched)
+    if out["lost_sessions"] < 1 or \
+            out["recovered_sessions"] != out["lost_sessions"]:
+        raise AssertionError(f"cluster crash: lost {out['lost_sessions']}, "
+                             f"recovered {out['recovered_sessions']}")
+    store = ld._store
+    line = (f"crash of group 0 at {CRASH_AT * span:.3f} s (back at "
+            f"{RECOVER_AT * span:.3f} s), checkpoints every "
+            f"{CKPT_EVERY * span:.3f} s: {out['lost_sessions']} sessions "
+            f"lost, {out['recovered_sessions']} restored, "
+            f"{store.checkpoints} checkpoints, stored_bytes "
+            f"{store.stored_bytes / 2**20:.1f} MiB, "
+            f"{engine_numbers(out['engine'], reqs, wall)}, launches "
+            f"{launched}")
+    return [r.output for r in reqs], wall, line
+
+
+def cluster_pairs(cfg, params, k, ref=None):
+    """The serial pair, the streamed pair in PLAIN_CHUNKS chunks (their
+    wire bytes and shards those of ``ref``, the "paged" phase's pairs)
+    and the streamed pair in FLAKY_CHUNKS chunks under a flaky link that
+    retransmits and corrupts shards (each corrupted handoff re-prefilled
+    on the decode engine).  Returns ({kind: greedy tokens}, {kind: wall},
+    log lines)."""
+    from repro_torch.serving.faults import FaultPlan
+    tokens, walls, lines = {}, {}, []
+    for kind, chunks in (("serial pd", 1), ("streamed pd", PLAIN_CHUNKS),
+                         ("flaky pd", FLAKY_CHUNKS)):
+        ld = launch(cluster_spec(pd=True, kv_chunks=chunks), cfg, params)
+        if kind == "flaky pd":
+            ld.inject(FaultPlan(seed=FLAKY_SEED).flaky_link(0, 1, **FLAKY))
+        reqs, out, wall, launched = serve_launched(ld, cfg, k)
+        check_completed(f"{cfg.name} cluster {kind}", reqs, cfg)
+        check_pair_launches(cfg, kind, out, launched)
+        wire, shards = out["wire_bytes"], out["shards"]
+        if ref is not None and kind in ref and (wire, shards) != ref[kind]:
+            raise AssertionError(f"cluster {kind}: {wire} bytes in {shards}"
+                                 f" shards, the paged phase's {ref[kind]}")
+        line = (f"{kind}: {wire / 2**20:.1f} MiB on the wire in {shards} "
+                f"shards, {engine_numbers(out['engine'], reqs, wall)}, "
+                f"launches {launched}")
+        if kind == "flaky pd":
+            if not (out["kv_retries"] > 0 and out["kv_corrupted"] > 0
+                    and out["reprefills"] == out["kv_corrupted"]):
+                raise AssertionError(f"cluster flaky pd: {out}")
+            line += (f", {out['kv_retries']} retransmits, "
+                     f"{out['kv_corrupted']} corrupted shards, "
+                     f"{out['reprefills']} re-prefills")
+        tokens[kind], walls[kind] = [r.output for r in reqs], wall
+        lines.append(line)
+    return tokens, walls, lines
+
+
+def decode_trace(cfg, params, M, dev):
+    """The decode step (B slots, a cache of MAX_LEN) traced on ``dev``,
+    the cache's readers and writers pinned to plan device 0."""
+    from repro_torch.core import analyzer
+    traced = analyzer.analyze(
+        lambda p, c, t, q: M.decode_step(p, cfg, t, c, q, tagged=True),
+        params, M.init_cache(cfg, B, MAX_LEN, device=dev),
+        torch.zeros((B, 1), dtype=torch.int32, device=dev),
+        torch.zeros(B, dtype=torch.int32, device=dev), state_argnums=(1,))
+    return traced.with_graph(analyzer.pin_nodes(
+        traced.graph, traced.state_readers | traced.state_writers, 0))
+
+
+def cluster_des(graph) -> str:
+    """The deployment DES of CLUSTER_GROUPS on the decode step's graph:
+    one Poisson trace simulated twice must give identical event logs."""
+    from repro_torch.serving.spec import DeploymentSpec
+    from repro_torch.serving.workload import poisson_trace
+    dep = DeploymentSpec(groups=CLUSTER_GROUPS, arch=CLUSTER_ARCH,
+                         base_output=1, anneal_iters=CLUSTER_ANNEAL) \
+        .compile(graph)
+    trace = poisson_trace(rate=1.5 * dep.cluster().capacity,
+                          num_requests=DES_REQUESTS, seed=5)
+    a, b = dep.simulate(trace), dep.simulate(trace)
+    if not a.events or (a.events, a.latencies, a.ttfts, a.assignments) != \
+            (b.events, b.latencies, b.ttfts, b.assignments):
+        raise AssertionError("cluster DES: two runs of one trace differ")
+    return (f"DES of {CLUSTER_GROUPS} on the decode graph, {DES_REQUESTS} "
+            f"Poisson requests at 1.5x capacity: modeled by the cost model "
+            f"for those catalog GPUs, not measured: throughput "
+            f"{a.throughput:.3f} req/s, mean TTFT {a.mean_ttft:.4f} s, mean "
+            f"latency {a.mean_latency:.4f} s, p95 {a.p(0.95):.4f} s, "
+            f"per replica {a.per_replica_completed}; {len(a.events)} events,"
+            " identical in two runs")
+
+
+def cluster_elastic(cfg, params, M, traced, dev) -> str:
+    """ElasticExecutor on the decode step over ELASTIC_SPECS mapped onto
+    three streams of the card, from one prefilled cache: the logits are
+    bit-identical to the eager step's with three devices and after each
+    of two mark_failed calls."""
+    from repro_torch.core.costmodel import CATALOG
+    from repro_torch.core.executor import logical_devices
+    from repro_torch.runtime.fault import ElasticExecutor
+    rng = np.random.default_rng(0)
+    lens = np.asarray([PROMPT, 300, 77, 5])
+    toks = np.zeros((B, PROMPT), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    cache0 = M.init_cache(cfg, B, MAX_LEN, device=dev)
+    M.prefill(params, cfg, torch.from_numpy(toks).to(dev), cache0,
+              last_pos=torch.from_numpy((lens - 1).astype(np.int32)).to(dev))
+    step_toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1))
+                                 .astype(np.int32)).to(dev)
+    pos = torch.from_numpy(lens.astype(np.int32)).to(dev)
+
+    def logits(fn):
+        cache = {part: {n: v.clone() for n, v in leaves.items()}
+                 for part, leaves in cache0.items()}
+        out = fn(params, cache, step_toks, pos)[0]
+        torch.cuda.synchronize()
+        return out
+
+    want = logits(lambda p, c, t, q: M.decode_step(p, cfg, t, c, q))
+    t = time.perf_counter()
+    ex = ElasticExecutor(traced, [CATALOG[n] for n in ELASTIC_SPECS],
+                         logical_devices(len(ELASTIC_SPECS), dev))
+    notes = [f"built in {time.perf_counter() - t:.1f} s"]
+    for lost in (None, 2, 1):
+        if lost is not None:
+            t = time.perf_counter()
+            ex.mark_failed(lost)
+            notes.append(f"lost {ELASTIC_SPECS[lost]}, re-planned and "
+                         f"rebuilt in {time.perf_counter() - t:.1f} s")
+        same = torch.equal(logits(ex), want)
+        notes.append(f"{ex.plan.summary()} ({ex.exe.num_units} dispatch "
+                     f"units): logits bit-identical to the eager step: "
+                     f"{same}")
+        if not same:
+            raise AssertionError(f"elastic executor: {notes[-1]}")
+    return "elastic executor on 3 streams: " + "; ".join(notes)
+
+
+def cluster_launcher() -> str:
+    """``launch.serve --deployment`` once, on a streamed pair's spec file
+    (the launcher makes its own weights from the spec's seed)."""
+    import tempfile
+    from repro_torch.launch import serve as launcher
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "spec.json")
+        cluster_spec(pd=True, kv_chunks=PLAIN_CHUNKS).save(path)
+        out = launcher.main(["--deployment", path, "--device", DEV,
+                             "--requests", str(N_REQUESTS), "--max-new",
+                             str(MAX_NEW), "--trace", "poisson", "--rate",
+                             str(RATE)])
+    torch.cuda.empty_cache()
+    if out["engine"]["completed"] != N_REQUESTS or not out["shards"]:
+        raise AssertionError(f"launch.serve --deployment: {out}")
+    return (f"launch.serve --deployment (streamed pair): "
+            f"{out['engine']['completed']} requests, "
+            f"{out['wire_bytes'] / 2**20:.1f} MiB in {out['shards']} shards")
+
+
+def cluster_identity(cfg, k):
+    """llama3-8b at full width in fp32 with IDENTITY_LAYERS layers: the
+    drain, crash-recovery and flaky-pair runs give the greedy tokens of
+    one plain engine.  Returns the plain engine's tokens."""
+    from repro_torch.serving.engine import ServingEngine
+    small = dataclasses.replace(cfg, num_layers=IDENTITY_LAYERS,
+                                dtype="float32")
+    params = init_params(k.M, small)
+    reqs = paged_requests(small)
+    ServingEngine(small, params, slots=B, max_len=MAX_LEN,
+                  device=DEV).run(reqs)
+    want = [r.output for r in reqs]
+    drain, span, _ = cluster_pool(small, params, k)
+    runs = {"drain": drain,
+            "crash": cluster_crash(small, params, k, span)[0],
+            "flaky pd": cluster_pairs(small, params, k)[0]["flaky pd"]}
+    diff = {label: [i for i, (a, b) in enumerate(zip(o, want)) if a != b]
+            for label, o in runs.items()}
+    if any(diff.values()):
+        raise AssertionError(f"cluster: greedy tokens differ from the plain "
+                             f"engine's (request indices): {diff}")
+    free(params)
+    return (f"{small.name} fp32, {IDENTITY_LAYERS} layers: drain migration, "
+            "crash recovery and re-prefill give the plain engine's greedy "
+            f"tokens ({len(want)} requests x {MAX_NEW} tokens)")
+
+
+def phase_cluster(cfg, params, k, ref) -> None:
+    """The cluster layer on llama3-8b (bf16, full width, its weights
+    loaded): the deployment DES, the launched pool (drain, crash with
+    checkpoint recovery), the serial, streamed and flaky prefill ->
+    decode pairs, the launcher's --deployment, the elastic executor on
+    three streams, and the greedy-token identity of the recovered runs in
+    fp32 at IDENTITY_LAYERS layers.  ``ref`` is what phase_paged_llama
+    returned: the fixed engine's tokens and the pairs' wire numbers.  The
+    launch counters are zeroed at the start and read at the end (no step
+    of the phase zeroes them)."""
+    M, name = k.M, card()
+    dev = torch.device(DEV, torch.cuda.current_device())
+    reset_counts(k)
+    lines, walls = [], {}
+
+    def step(label, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        walls[label] = time.perf_counter() - t
+        return out
+
+    traced = step("trace", decode_trace, cfg, params, M, dev)
+    lines.append(f"decode step traced: {traced.graph.stats()}")
+    lines.append(step("des", cluster_des, traced.graph))
+    drain, span, line = step("drain", cluster_pool, cfg, params, k)
+    lines.append(line)
+    crash, _, line = step("crash", cluster_crash, cfg, params, k, span)
+    lines.append(line)
+    pairs, _, pair_lines = step("pairs", cluster_pairs, cfg, params, k, ref)
+    lines += pair_lines
+    lines.append(step("launcher", cluster_launcher))
+    lines.append(step("elastic", cluster_elastic, cfg, params, M, traced,
+                      dev))
+    del traced
+    lines.append(step("identity", cluster_identity, cfg, k))
+    launched = counts(k)
+    if not launched["flash_decode"] or not launched["flash_prefill"]:
+        raise AssertionError(f"cluster phase launches {launched}")
+    want = ref["fixed"]
+    same = {label: sum(a == b for a, b in zip(o, want))
+            for label, o in (("drain", drain), ("crash", crash),
+                             ("flaky pd", pairs["flaky pd"]))}
+    for line in lines:
+        log(f"[cluster] {cfg.name} on {name}: {line}")
+    log(f"[cluster] {cfg.name} bf16 full width, requests whose greedy "
+        f"tokens equal the fixed engine's (reported, not held): "
+        + ", ".join(f"{label} {n}/{len(want)}" for label, n in same.items()))
+    log(f"[cluster] on {name}: phase walls "
+        + ", ".join(f"{label} {w:.1f} s" for label, w in walls.items())
+        + f"; launches in the phase: K1 {launched['flash_decode']}, K2 "
+        f"{launched['flash_prefill']}")
 
 
 # --------------------------------------------------------------------- #
@@ -1939,14 +2317,19 @@ def main() -> int:
         launches.update(phase_serve(cfg, params, k))
         log_phase(cfg.name)
         if cfg.family == "dense":
-            launches.update(phase_paged_llama(cfg, params, k))
+            paged, ref = phase_paged_llama(cfg, params, k)
+            launches.update(paged)
             phase_paged_identity(cfg, k)
         elif cfg.family == "moe":
             phase_paged_handoff(cfg, params)
         else:
             phase_paged_recurrent(cfg, params, k, limit)
-        free(params)
         log_phase(f"{cfg.name} paged")
+        if cfg.family == "dense":
+            # the cluster layer, with llama3-8b's weights still loaded
+            phase_cluster(cfg, params, k, ref)
+            log_phase("cluster")
+        free(params)
 
     served(configs.get("llama3_8b"), [PROMPT, 300, 77, 5])
     # the window check (2 layers, fp32, window 128), then gpt-oss-20b

@@ -21,9 +21,18 @@ the encdec and vlm ones raise ``NotImplementedError``.
 for the GPU pair ``PLAN_PAIR`` under ``--policy`` (``core.planner``,
 with the cache's readers and writers pinned to the first device) and
 serves through the disaggregated executable, both logical devices on
-the one ``--device`` (each with its own stream on CUDA).  Same flags as
-``repro.launch.serve`` apart from ``--deployment``, which waits for the
-cluster layer; ``--device`` is new.
+the one ``--device`` (each with its own stream on CUDA).
+
+``--deployment SPEC_JSON`` launches a serialized ``DeploymentSpec``
+instead (``serving.spec``): a pool of colocated engines, one per replica
+group, or the prefill -> decode pair when the spec says ``pd`` (streamed
+when ``kv_chunks > 1``), every engine on ``--device`` and sharing one
+set of weights; engine knobs come from ``spec.engine``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --deployment spec.json \
+      --device cpu --smoke --requests 8
+
+Same flags as ``repro.launch.serve``; ``--device`` is new.
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ from repro_torch.core.executor import build_executable, logical_devices
 from repro_torch.models import model as M
 from repro_torch.serving.engine import (Request, ServingEngine,
                                         requests_from_trace)
+from repro_torch.serving.spec import DeploymentSpec
 from repro_torch.serving.workload import make_trace
 
 
@@ -129,8 +139,29 @@ def main(argv: Optional[List[str]] = None) -> dict:
                          "for the pair " + "+".join(PLAN_PAIR))
     ap.add_argument("--policy", default="throughput",
                     choices=["throughput", "latency"])
+    ap.add_argument("--deployment", default=None, metavar="SPEC_JSON",
+                    help="load a serialized DeploymentSpec and launch "
+                         "its engine topology instead of the ad-hoc "
+                         "flags (--arch/--slots/... are ignored except "
+                         "--smoke/--requests/--max-new/--trace/--rate/"
+                         "--device)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
+
+    if args.deployment:
+        spec = DeploymentSpec.load(args.deployment)
+        arch = spec.arch or args.arch
+        cfg = (configs.get_smoke(arch) if args.smoke
+               else configs.get(arch))
+        launched = spec.compile().launch(cfg, device=device)
+        max_len = int(spec.engine.get("max_len", 64))
+        reqs = build_requests(args, cfg, max_len)
+        out = launched.run(reqs)
+        print(f"deployment: pd={spec.pd} kv_chunks={spec.kv_chunks} "
+              f"engines={len(launched.engines)} "
+              f"wire_bytes={out['wire_bytes']} shards={out['shards']}")
+        print(out["engine"])
+        return out
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))
     params = M.init_params(cfg, device=device)

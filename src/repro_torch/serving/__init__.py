@@ -1,1 +1,3 @@
-"""Serving: the fixed-slot continuous-batching engine and workload traces."""
+"""Serving: the continuous-batching engine, paged KV and sessions,
+workload traces, and the cluster layer (router, fabric, faults,
+controller, deployment spec, sizing)."""

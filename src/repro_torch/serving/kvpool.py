@@ -65,11 +65,12 @@ def kv_checksum(state: State) -> int:
     return crc
 
 
-def _state_to(state: Any, device) -> Any:
-    """A copy of a nested dict of tensors on ``device``."""
+def _state_to(state: Any, device, copy: bool = False) -> Any:
+    """A nested dict of tensors on ``device``.  A leaf already there is
+    the same tensor unless ``copy``."""
     if isinstance(state, dict):
-        return {k: _state_to(v, device) for k, v in state.items()}
-    return None if state is None else state.to(device)
+        return {k: _state_to(v, device, copy) for k, v in state.items()}
+    return None if state is None else state.to(device, copy=copy)
 
 
 # ===================================================================== #
@@ -561,7 +562,11 @@ class SessionManager:
             # ring buffer, injected prefill or a one-chunk prompt
             logits, cache1 = self._whole_prefill(req, cache1)
 
-        for key, n_layers in M.cache_layer_counts(cache1).items():
+        # components in sorted key order, as the JAX package streams
+        # them (its cache is a pytree): a hybrid ships "kv" before
+        # "mamba", so a fault that cuts the stream cuts it at the same
+        # shard
+        for key, n_layers in sorted(M.cache_layer_counts(cache1).items()):
             if key == "kv" and chunked:
                 continue        # already streamed per chunk
             for layer in range(n_layers):

@@ -26,17 +26,12 @@ from repro_torch.core.graph import KernelGraph, KernelNode  # noqa: E402
 from repro_torch.core.makespan import (MakespanProblem,  # noqa: E402
                                        fold_and_solve, solve_throughput)
 
+from _torch_parity import to_port  # noqa: E402
 from conftest import random_dag  # noqa: E402
 
 PAIR = PAPER_PAIRS[1]                       # ("h100", "rtxpro6000")
 DEVS2 = [CATALOG["a100"], CATALOG["l40s"]]
 DEVS3 = [CATALOG["a100"], CATALOG["l40s"], CATALOG["h100"]]
-
-
-def to_port(g) -> KernelGraph:
-    """The reference's KernelGraph as the port's (same fields)."""
-    return KernelGraph([KernelNode(**dataclasses.asdict(n))
-                        for n in g.nodes], dict(g.edges), name=g.name)
 
 
 def _stages(p):
