@@ -27,7 +27,12 @@ Phases; any failure raises and the script exits non-zero:
               at B 1, the shape of every recurrent serve admission; K2
               also at one chunk of a chunked llama3-8b admission, Sq 128
               at q_offset 384 over Skv 512, against SDPA with a
-              bottom-right causal mask);
+              bottom-right causal mask); K2's non-causal mode at
+              seamless-m4t-large-v2's encoder (4 x 1024 frames, 16 heads
+              of 64), its cross-attention (512 queries over 1024 frames)
+              and a ragged pair (37 over 1000), K1 over a whole cross cache
+              and at qwen2-vl-7b's 32 (28 padded) / 4 heads of 128, timed
+              against SDPA without a mask;
   3. llama    full-width llama3-8b in bf16 (random weights from a seeded
               generator): one right-padded prefill and 8 decode steps
               through the kernels, each step under
@@ -114,6 +119,28 @@ Phases; any failure raises and the script exits non-zero:
               completion (not its issue) and rerun it on a fallback
               stream with the eager result.  Phase 2 also runs K1 and K4
               (B 1) twice at once on two unordered streams;
+  encdec      seamless-m4t-large-v2 at the model level (the engine serves
+              neither it nor qwen2-vl, as the reference's): in fp32 at 2
+              encoder and 2 decoder layers, then at full width and depth
+              in bf16, 1024 encoder frames of N(0, 0.02) embeddings and
+              right-padded prompts <= 512, one prefill and 8 decode steps
+              (no host sync) through the kernels and the plain versions,
+              logits held at MODEL_RTOL; attention launches counted by
+              site: 72 K2 a prefill (24 encoder and 24 cross, non-causal;
+              24 causal) and 48 K1 a step (24 self, 24 cross); prefill and
+              step wall beside the kernels' share; the decode step traced
+              (48 K1 op nodes, the cross caches' readers pinned), planned
+              for the H100 + RTX Pro 6000 pair under both policies and
+              run on two streams of the card, bit-identical to the eager
+              step;
+  vlm         qwen2-vl-7b the same way (2 layers in fp32, then 28): 256
+              patch embeddings spliced at positions [0, 256) and M-RoPE
+              ids laid out as Qwen2-VL's get_rope_index lays out a 16 x 16
+              image and the text after it (a decode step's ids are its
+              slot - 240, computed on the device); 28 K2 a prefill and 28
+              K1 a step; a decode step with and without the ids writes
+              the same slots with keys rotated apart; the traced step
+              takes the ids as a fifth argument;
   9. card     the card's name and power limit from nvidia-smi.
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
@@ -122,6 +149,7 @@ rest of the repository beside it, the script fails and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -134,6 +162,7 @@ import types
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils._pytree as pytree
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -153,10 +182,20 @@ IDENTITY_LAYERS = 4
 # K2 at one chunk of a chunked llama3-8b admission: the last 128-token
 # chunk of a 512-token prompt
 CHUNK_SQ, CHUNK_OFFSET = 128, 384
-# attention shapes (H, Hkv, D) of the three attention models
+# attention shapes (H, Hkv, D) of the attention models (qwen2-vl-7b's 28
+# query heads padded to 32, as the reference pads them)
 LLAMA_ATTN = (32, 8, 128)
 GPTOSS_ATTN = (64, 8, 64)
 ZAMBA_ATTN = (32, 32, 112)
+SEAMLESS_ATTN = (16, 16, 64)
+QWEN_ATTN = (32, 4, 128)
+# the "encdec" phase: 1024 encoder frames (the reference's
+# ENC_LEN_DEFAULT); the "vlm" phase: 256 patches of a 16 x 16 image at
+# positions [0, 256), text after them
+ENC_LEN = 1024
+VLM_PATCHES, VLM_SIDE = 256, 16
+# fp32 depth of the two phases' tight checks (encoder and decoder layers)
+SMALL_DEPTH = 2
 RWKV_SHAPE = (40, 64)                 # rwkv6-3b: heads, head size (K4)
 SSD_SHAPE = (112, 64, 64)             # zamba2-7b: heads, head dim, state (K5)
 GPTOSS_WINDOW = 4096                  # gpt-oss-20b's sliding window
@@ -479,6 +518,118 @@ def time_prefill_chunk(g, FK, FR) -> dict:
         f"(causal_lower_right) {row['library_ms']:.4f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     return row
+
+
+def sdpa_full(q, k, v):
+    """SDPA with no mask (every query sees every key): the yardstick of
+    K2's non-causal mode."""
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        enable_gqa=True)
+
+
+# K1 and K2 at the encdec and vlm main paths' shapes, B 4: (row, kernel,
+# (H, Hkv, D), Sq (K2) or lengths (K1), Skv (K2) or cache slots (K1),
+# causal (K2)).  seamless: the encoder (1024 frames), the cross-attention
+# of a 512-token prompt over them, the decoder's causal prompt, a decode
+# step's self-attention at 512 tokens and its cross-attention over the
+# whole cross cache; qwen2-vl: the prompt and a decode step at 512.
+ENCDEC_VLM_ROWS = (
+    ("flash_prefill_seamless_enc", "flash_prefill", SEAMLESS_ATTN, ENC_LEN,
+     ENC_LEN, False),
+    ("flash_prefill_seamless_cross", "flash_prefill", SEAMLESS_ATTN, PROMPT,
+     ENC_LEN, False),
+    ("flash_prefill_seamless_self", "flash_prefill", SEAMLESS_ATTN, PROMPT,
+     PROMPT, True),
+    ("flash_prefill_qwen2vl", "flash_prefill", QWEN_ATTN, PROMPT, PROMPT,
+     True),
+    ("flash_decode_seamless_self", "flash_decode", SEAMLESS_ATTN,
+     [PROMPT] * B, MAX_LEN, None),
+    ("flash_decode_seamless_cross", "flash_decode", SEAMLESS_ATTN,
+     [ENC_LEN] * B, ENC_LEN, None),
+    ("flash_decode_qwen2vl", "flash_decode", QWEN_ATTN, [PROMPT] * B,
+     MAX_LEN, None),
+)
+
+
+def check_and_time_encdec_vlm(g, FK, FR) -> list:
+    """K2's non-causal mode and K1 and K2 at the encdec and vlm shapes
+    against their plain versions, fp32 (tight) and bf16 (TOL): K2
+    non-causal at the encoder (1024 x 1024), the cross-attention (512
+    queries over 1024 frames) and a ragged pair (37 over 1000: neither a
+    multiple of 64); K1 over a whole cross cache (rep 1, D 64) and at
+    qwen2-vl's rep 8, D 128; K2 causal at both families' prompts.  Then
+    the rows of ENCDEC_VLM_ROWS timed in bf16 against the plain version
+    and SDPA (no mask, ``is_causal``, or the length mask)."""
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for attn, S, Skv, causal in (
+                (SEAMLESS_ATTN, ENC_LEN, ENC_LEN, False),
+                (SEAMLESS_ATTN, PROMPT, ENC_LEN, False),
+                (SEAMLESS_ATTN, 37, 1000, False),
+                (SEAMLESS_ATTN, PROMPT, PROMPT, True),
+                (QWEN_ATTN, PROMPT, PROMPT, True),
+                (QWEN_ATTN, 37, 37, True)):
+            q, k, v = prefill_inputs(g, dtype, S, attn, Skv)
+            what = (f"K2 {tag} (H, Hkv, D)={attn} Sq={S} Skv={Skv} "
+                    f"causal={causal}")
+            e = check(what, FK.flash_prefill(q, k, v, causal=causal),
+                      FR.prefill_attention(q, k, v, causal=causal),
+                      TOL[dtype])
+            log(f"[kernels] {what}: max abs err {e:.3e}")
+            if dtype == torch.bfloat16:
+                key = ("flash_prefill", attn, causal)
+                errs[key] = max(errs.get(key, 0.0), e)
+        for attn, T, lengths in ((SEAMLESS_ATTN, ENC_LEN, [ENC_LEN] * B),
+                                 (SEAMLESS_ATTN, MAX_LEN, [1, 77, 512, 1024]),
+                                 (QWEN_ATTN, MAX_LEN, [1, 300, 512, 1024]),
+                                 (QWEN_ATTN, MAX_LEN, [PROMPT] * B)):
+            q, k, v, lens = decode_inputs(g, dtype, lengths, attn, T)
+            what = f"K1 {tag} (H, Hkv, D)={attn} T={T} lengths={lengths}"
+            e = check(what, FK.flash_decode(q, k, v, lens),
+                      FR.decode_attention(q, k, v, lens), TOL[dtype])
+            log(f"[kernels] {what}: max abs err {e:.3e}")
+            if dtype == torch.bfloat16:
+                key = ("flash_decode", attn, None)
+                errs[key] = max(errs.get(key, 0.0), e)
+    dt, es = torch.bfloat16, 2
+    rows = []
+    for name, kname, attn, S, Skv, causal in ENCDEC_VLM_ROWS:
+        H, Hkv, D = attn
+        if kname == "flash_prefill":
+            sets = [prefill_inputs(g, dt, S, attn, Skv) for _ in range(3)]
+            pairs = S * (S + 1) // 2 if causal else S * Skv
+            bnd = bound(es * (2 * B * S * H * D + 2 * B * Skv * Hkv * D),
+                        4 * D * H * B * pairs, dt)
+
+            def kern(q, k, v, causal=causal):
+                return FK.flash_prefill(q, k, v, causal=causal)
+
+            def plain(q, k, v, causal=causal):
+                return FR.prefill_attention(q, k, v, causal=causal)
+            lib = sdpa_prefill if causal else sdpa_full
+        else:
+            sets = [decode_inputs(g, dt, S, attn, Skv) for _ in range(6)]
+            n_tok = sum(S)
+            bnd = bound(es * (2 * B * H * D + 2 * n_tok * Hkv * D) + 4 * B,
+                        4 * n_tok * H * D, dt)
+            kern, plain, lib = FK.flash_decode, FR.decode_attention, \
+                sdpa_decode
+        row = {"name": name, "route": "cuda",
+               "source": FA_SRC + kname + ".cu", "replaces": REPLACES[kname],
+               "launches": 0, "max_abs_err": errs[(kname, attn, causal)],
+               "ms": time_ms(kern, sets),
+               "plain_ms": time_ms(plain, sets, iters=10), **bnd,
+               "library_ms": time_ms(lib, sets)}
+        log(f"[kernels] {name} bf16 (H, Hkv, D)={attn} "
+            + (f"Sq={S} Skv={Skv} causal={causal}" if causal is not None
+               else f"cache {Skv} lengths {S}")
+            + f" timing: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        rows.append(row)
+    return rows
 
 
 def gmm_inputs(g, dtype, sizes, w):
@@ -890,6 +1041,88 @@ def perturbed_plain(k, rel: float = 1e-6):
                     (k.S, "ssd", noisy(k.SR.ssd))))
 
 
+def vlm_positions3(length: int) -> np.ndarray:
+    """(3, B, length) M-RoPE ids of a prompt that starts with one image of
+    VLM_PATCHES patches on a VLM_SIDE-wide grid, laid out as Qwen2-VL's
+    ``get_rope_index`` does: patch i at (t, h, w) = (0, i // side, i %
+    side), then text from the largest id + 1 on all three axes."""
+    p3 = np.zeros((3, length), np.int32)
+    i = np.arange(VLM_PATCHES)
+    p3[1, :VLM_PATCHES], p3[2, :VLM_PATCHES] = i // VLM_SIDE, i % VLM_SIDE
+    p3[:, VLM_PATCHES:] = np.arange(length - VLM_PATCHES) + VLM_SIDE
+    return np.broadcast_to(p3[:, None], (3, B, length)).copy()
+
+
+# a vlm text token in cache slot p rotates at p - VLM_SHIFT
+VLM_SHIFT = VLM_PATCHES - VLM_SIDE
+
+
+def model_inputs(cfg, S: int):
+    """The extra inputs of a B-row model call with S-token prompts:
+    (init_cache kwargs, prefill kwargs, a function of the decode
+    positions (B,) giving decode_step kwargs).  encdec: ENC_LEN encoder
+    frames of N(0, 0.02) embeddings (as ``tests/test_arch_smoke.py``'s),
+    cross caches of ENC_LEN; vlm: VLM_PATCHES patch embeddings of the
+    same scale at positions [0, VLM_PATCHES) with the grid's M-RoPE ids,
+    and each decode step's ids computed on the device from the positions
+    (no host sync); other families: none."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(2)
+    if cfg.family == "encdec":
+        enc = randn(g, B, ENC_LEN, cfg.d_model, dtype=cfg.torch_dtype)
+        return {"enc_len": ENC_LEN}, {"enc_embeds": enc * 0.02}, \
+            lambda pos: {}
+    if cfg.family == "vlm":
+        patches = randn(g, B, VLM_PATCHES, cfg.d_model,
+                        dtype=cfg.torch_dtype) * 0.02
+        p3 = torch.from_numpy(vlm_positions3(S)).to(DEV)
+        return {}, {"patch_embeds": patches, "positions3": p3}, \
+            lambda pos: {"positions3": (pos - VLM_SHIFT)[None, :, None]
+                         .expand(3, B, 1)}
+    return {}, {}, lambda pos: {}
+
+
+def prompt_lens(cfg) -> list:
+    """Right-padded prompt lengths of the model checks: a vlm prompt holds
+    the image and at least one text token."""
+    if cfg.family == "vlm":
+        return [PROMPT, 400, 300, VLM_PATCHES + 1]
+    return [PROMPT, 300, 77, 5]
+
+
+@contextlib.contextmanager
+def attention_sites(k, sites):
+    """Count the model's attention kernel calls in ``sites`` by (kernel,
+    site): K1 and K2 inside ``layers.cross_attention`` are "cross", a K2
+    call outside it with ``causal=False`` "encoder", every other "self";
+    a K2 call whose causal flag does not fit its site raises."""
+    where = ["self"]
+    cross, pre, dec = k.L.cross_attention, k.FA.prefill_attention, \
+        k.FA.decode_attention
+
+    def in_cross(*a, **kw):
+        where[0] = "cross"
+        try:
+            return cross(*a, **kw)
+        finally:
+            where[0] = "self"
+
+    def prefill(q, k_, v, *, causal=True, **kw):
+        site = where[0] if causal or where[0] == "cross" else "encoder"
+        if causal != (site == "self"):
+            raise AssertionError(f"K2 with causal={causal} at {site}")
+        sites[("flash_prefill", site)] += 1
+        return pre(q, k_, v, causal=causal, **kw)
+
+    def decode(*a):
+        sites[("flash_decode", where[0])] += 1
+        return dec(*a)
+    with swapped(((k.L, "cross_attention", in_cross),
+                  (k.FA, "prefill_attention", prefill),
+                  (k.FA, "decode_attention", decode))):
+        yield
+
+
 def counts(k) -> dict:
     return {n: v for m in k.kernels for n, v in m.LAUNCHES.items()}
 
@@ -906,10 +1139,16 @@ def expected_launches(cfg, steps: int, admissions: int,
     token (a one-token mamba prefill takes the recurrent step, not K5)."""
     n, fam = cfg.num_layers, cfg.family
     out = dict.fromkeys(KERNEL_NAMES, 0)
-    if fam in ("dense", "moe"):
+    if fam in ("dense", "moe", "vlm"):
         out.update(flash_prefill=n * admissions, flash_decode=n * steps)
         if fam == "moe":
             out["gmm"] = 3 * n * (steps + admissions)
+    elif fam == "encdec":
+        # a prefill: the encoder's layers (non-causal), then each decoder
+        # layer's causal self-attention and non-causal cross-attention; a
+        # step: each decoder layer's self- and cross-attention
+        out.update(flash_prefill=(cfg.encoder_layers + 2 * n) * admissions,
+                   flash_decode=2 * n * steps)
     elif fam == "ssm":
         out["wkv"] = n * (steps + admissions)
     elif fam == "hybrid":
@@ -919,14 +1158,17 @@ def expected_launches(cfg, steps: int, admissions: int,
     return out
 
 
-def phase_model(cfg, params, k, lens) -> float:
+def phase_model(cfg, params, k, lens, sites=None, walls=None) -> float:
     """Prefill of ``lens`` (right-padded for attention families; equal
     lengths for recurrent ones, whose state a pad token would enter) and
     DECODE_STEPS decode steps, through the kernels and through the plain
     versions; logits held at MODEL_RTOL.  Through the kernels, every
     decode step runs under ``set_sync_debug_mode("error")``: it must make
     no host sync.  (The plain grouped matmul reads the group sizes on the
-    host.)
+    host.)  encdec and vlm models take model_inputs' extra inputs.  With
+    ``sites`` (a Counter), the kernel run's attention calls are counted
+    there by site (attention_sites); ``walls`` gets the kernel run's
+    prefill and mean decode-step wall (ms).
 
     MoE: a router near-tie lets the two runs' rounding pick different
     experts for a token, and in bf16 such flips cascade through the
@@ -962,15 +1204,17 @@ def phase_model(cfg, params, k, lens) -> float:
                              .astype(np.int32)).to(dev)
     toks_d = torch.from_numpy(toks).to(dev)
     last = torch.from_numpy((lens - 1).astype(np.int32)).to(dev)
+    cache_kw, prefill_kw, step_kw = model_inputs(cfg, S)
 
     def run(check_sync: bool):
         """Logits of the prefill and each decode step, the wall time (ms,
         host clock after a synchronise) of each, and the host time each
         decode step took to queue its work (before the synchronise)."""
-        cache = M.init_cache(cfg, B, MAX_LEN, device=dev)
+        cache = M.init_cache(cfg, B, MAX_LEN, device=dev, **cache_kw)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        logits, cache = M.prefill(params, cfg, toks_d, cache, last_pos=last)
+        logits, cache = M.prefill(params, cfg, toks_d, cache, last_pos=last,
+                                  **prefill_kw)
         outs = [logits.float()]
         torch.cuda.synchronize()
         wall = [(time.perf_counter() - t) * 1e3]
@@ -982,7 +1226,8 @@ def phase_model(cfg, params, k, lens) -> float:
             if check_sync:
                 torch.cuda.set_sync_debug_mode("error")
             try:
-                logits, cache = M.decode_step(params, cfg, tok, cache, pos)
+                logits, cache = M.decode_step(params, cfg, tok, cache, pos,
+                                              **step_kw(pos))
                 outs.append(logits.float())
                 pos = pos + 1
             finally:
@@ -995,9 +1240,13 @@ def phase_model(cfg, params, k, lens) -> float:
     run(True)                               # first calls: allocator, cuBLAS
     routes_k, routes_p = [], []
     reset_counts(k)
-    with routing(L, record=routes_k):
+    with routing(L, record=routes_k), (
+            attention_sites(k, sites) if sites is not None
+            else contextlib.nullcontext()):
         got, wall, enq = run(True)
     n_kern = counts(k)
+    if walls is not None:
+        walls.update(prefill=wall[0], step=float(np.mean(wall[1:])))
     with plain_versions(k), routing(L, replay=routes_k):
         want, wall_plain, _ = run(False)
     n_layers, moe = cfg.num_layers, cfg.family == "moe"
@@ -2007,6 +2256,12 @@ def phase_tessera(configs, k) -> None:
     tessera_pipeline()
 
 
+def step_positions3(extra) -> dict:
+    """decode_step's keyword for a traced step's extra argument: a vlm
+    step's M-RoPE ids (the fifth argument), else nothing."""
+    return {"positions3": extra[0]} if extra else {}
+
+
 def tessera_steps(cfg, params, k, exes) -> None:
     """From one prefilled cache, DECODE_STEPS decode steps through each
     executable and through the eager step, every step under
@@ -2014,25 +2269,26 @@ def tessera_steps(cfg, params, k, exes) -> None:
     same ops and kernels in the same order) and the launches equal."""
     M = k.M
     rng = np.random.default_rng(0)
-    lens = np.asarray([PROMPT, 300, 77, 5])
+    lens = np.asarray(prompt_lens(cfg))
     toks = np.zeros((B, PROMPT), np.int32)
     for i, n in enumerate(lens):
         toks[i, :n] = rng.integers(0, cfg.vocab_size, n)
     dev = torch.device(DEV)
     steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
         B, DECODE_STEPS)).astype(np.int32)).to(dev)
-    cache0 = M.init_cache(cfg, B, MAX_LEN, device=dev)
+    cache_kw, prefill_kw, step_kw = model_inputs(cfg, PROMPT)
+    cache0 = M.init_cache(cfg, B, MAX_LEN, device=dev, **cache_kw)
     M.prefill(params, cfg, torch.from_numpy(toks).to(dev), cache0,
-              last_pos=torch.from_numpy((lens - 1).astype(np.int32)).to(dev))
+              last_pos=torch.from_numpy((lens - 1).astype(np.int32)).to(dev),
+              **prefill_kw)
 
-    def eager(p, c, t, q):
-        return M.decode_step(p, cfg, t, c, q)
+    def eager(p, c, t, q, *p3):
+        return M.decode_step(p, cfg, t, c, q, **step_positions3(p3))
 
     def run(fn):
         """Logits of each step, its wall time (ms, after a synchronise)
         and the host time it took to queue its work."""
-        cache = {part: {n: v.clone() for n, v in leaves.items()}
-                 for part, leaves in cache0.items()}
+        cache = pytree.tree_map(torch.clone, cache0)
         pos = torch.from_numpy(lens.astype(np.int32)).to(dev)
         outs, wall, enq, cpu = [], [], [], []
         torch.cuda.synchronize()
@@ -2040,7 +2296,8 @@ def tessera_steps(cfg, params, k, exes) -> None:
             t, c = time.perf_counter(), time.thread_time()
             torch.cuda.set_sync_debug_mode("error")
             try:
-                logits, cache = fn(params, cache, steps[:, i:i + 1], pos)
+                logits, cache = fn(params, cache, steps[:, i:i + 1], pos,
+                                   *step_kw(pos).values())
                 outs.append(logits)
                 pos = pos + 1
             finally:
@@ -2051,8 +2308,9 @@ def tessera_steps(cfg, params, k, exes) -> None:
             wall.append((time.perf_counter() - t) * 1e3)
         return outs, wall, enq, cpu
 
-    def eager_tagged(p, c, t, q):
-        return M.decode_step(p, cfg, t, c, q, tagged=True)
+    def eager_tagged(p, c, t, q, *p3):
+        return M.decode_step(p, cfg, t, c, q, tagged=True,
+                             **step_positions3(p3))
 
     # the tagged eager step: what entering the marker regions costs
     fns = {"eager": eager, "eager, tagged": eager_tagged, **exes}
@@ -2240,6 +2498,165 @@ def tessera_pipeline() -> None:
                                  f" straggler reruns, expected {reruns}")
 
 
+# --------------------------------------------------------------------- #
+# encdec and vlm: seamless-m4t-large-v2 and qwen2-vl-7b at the model level
+# --------------------------------------------------------------------- #
+ENCDEC_VLM = ("seamless_m4t_large_v2", "qwen2_vl_7b")
+# the phase-2 rows that each model's kernel run supplies launches to, by
+# attention site (attention_sites)
+SITE_ROWS = {
+    "encdec": {("flash_prefill", "encoder"): "flash_prefill_seamless_enc",
+               ("flash_prefill", "cross"): "flash_prefill_seamless_cross",
+               ("flash_prefill", "self"): "flash_prefill_seamless_self",
+               ("flash_decode", "self"): "flash_decode_seamless_self",
+               ("flash_decode", "cross"): "flash_decode_seamless_cross"},
+    "vlm": {("flash_prefill", "self"): "flash_prefill_qwen2vl",
+            ("flash_decode", "self"): "flash_decode_qwen2vl"},
+}
+
+
+def phase_encdec_vlm(cfg, k, rows) -> dict:
+    """An encdec or vlm model at the model level (the engine serves
+    neither, as the reference's): in fp32 at SMALL_DEPTH encoder and
+    decoder layers, the prefill and decode check of phase_model, held
+    tight; at full width and depth in bf16 the same at MODEL_RTOL, every
+    decode step without a host sync, with the attention launches counted
+    by site (encdec: 72 K2 a prefill, 48 of them non-causal, and 48 K1 a
+    step; vlm: 28 and 28); the prefill's and the step's wall beside the
+    kernels' share of them (launches x phase 2's kernel ms); for vlm,
+    that M-RoPE ids move the angle and not the cache slot; then the
+    decode step traced, planned for the GPU pair under both policies and
+    run on two streams of the card, bit-identical to the eager step.
+    Returns the launches of each of SITE_ROWS' rows."""
+    M = k.M
+    lens = prompt_lens(cfg)
+    small = dataclasses.replace(
+        cfg, num_layers=SMALL_DEPTH,
+        encoder_layers=min(cfg.encoder_layers, SMALL_DEPTH), dtype="float32")
+    params = init_params(M, small)
+    phase_model(small, params, k, lens)
+    free(params)
+    params = init_params(M, cfg)
+    sites, walls = collections.Counter(), {}
+    phase_model(cfg, params, k, lens, sites=sites, walls=walls)
+    n, steps = cfg.num_layers, DECODE_STEPS
+    expect = {("flash_prefill", "self"): n,
+              ("flash_decode", "self"): n * steps}
+    if cfg.family == "encdec":
+        expect.update({("flash_prefill", "encoder"): cfg.encoder_layers,
+                       ("flash_prefill", "cross"): n,
+                       ("flash_decode", "cross"): n * steps})
+    if dict(sites) != expect:
+        raise AssertionError(f"{cfg.name}: attention launches by site "
+                             f"{dict(sites)} != {expect}")
+    launched = {SITE_ROWS[cfg.family][key]: v for key, v in sites.items()}
+    ms = {row["name"]: row["ms"] for row in rows}
+    share = {"prefill": 0.0, "step": 0.0}
+    for name, v in launched.items():
+        if name.startswith("flash_prefill"):
+            share["prefill"] += v * ms[name]
+        else:
+            share["step"] += v / steps * ms[name]
+    log(f"[{cfg.name}] attention launches by site in one prefill and "
+        f"{steps} decode steps: " + ", ".join(
+            f"{name} {v}" for name, v in launched.items()))
+    for what in ("prefill", "step"):
+        log(f"[{cfg.name}] {what} wall {walls[what]:.2f} ms (bf16, B {B}), "
+            f"of which the attention kernels take {share[what]:.3f} ms "
+            f"({100 * share[what] / walls[what]:.1f}%; launches x phase 2's "
+            "kernel ms)")
+    if cfg.family == "vlm":
+        vlm_slot_and_angle(cfg, params, k)
+    tessera_family(cfg, params, k)
+    free(params)
+    return launched
+
+
+def vlm_slot_and_angle(cfg, params, k) -> None:
+    """From one prefilled cache, one decode step with the grid's M-RoPE
+    ids (slot pos, angle pos - VLM_SHIFT) and one without ids (1-D RoPE at
+    pos): both write the same slots (layer 0's V bit for bit: it carries
+    no rotation), with layer 0's keys rotated apart, and the logits
+    differ."""
+    M = k.M
+    lens = np.asarray(prompt_lens(cfg))
+    cache_kw, prefill_kw, step_kw = model_inputs(cfg, PROMPT)
+    toks = torch.ones((B, PROMPT), dtype=torch.int32, device=DEV)
+    cache = M.init_cache(cfg, B, MAX_LEN, device=DEV)
+    M.prefill(params, cfg, toks, cache, last_pos=torch.from_numpy(
+        (lens - 1).astype(np.int32)).to(DEV), **prefill_kw)
+    pos = torch.from_numpy(lens.astype(np.int32)).to(DEV)
+    out = []
+    for kw in (step_kw(pos), {}):
+        c = pytree.tree_map(torch.clone, cache)
+        logits, _ = M.decode_step(params, cfg, toks[:, :1], c, pos, **kw)
+        rows = torch.arange(B, device=DEV)
+        out.append((logits, c["kv"]["k"][0, rows, pos.long()],
+                    c["kv"]["v"][0, rows, pos.long()]))
+    (la, ka, va), (lb, kb, vb) = out
+    apart = (torch.equal(va, vb) and not torch.equal(ka, kb)
+             and not torch.equal(la, lb))
+    log(f"[{cfg.name}] a decode step at slots {lens.tolist()} with M-RoPE "
+        f"ids {(lens - VLM_SHIFT).tolist()} and with 1-D RoPE: layer 0's "
+        f"V at the slots bit-identical, keys max diff "
+        f"{float((ka.float() - kb.float()).abs().max()):.3e}, logits max "
+        f"diff {float((la.float() - lb.float()).abs().max()):.3e}")
+    if not apart:
+        raise AssertionError(f"{cfg.name}: M-RoPE ids do not keep the slot "
+                             "and move the angle")
+
+
+def tessera_family(cfg, params, k) -> None:
+    """The Tessera core on an encdec or vlm decode step at full width:
+    traced with torch.export (a vlm step takes its M-RoPE ids as a fifth
+    argument; an encdec step reads the cross caches inside the cache
+    argument, and their readers are pinned with the KV cache's), planned
+    for PLAN_PAIR under both policies and run as two executables on two
+    streams of the card (tessera_steps: bit-identical to the eager step,
+    the same launches, no host sync).  A plan may keep the whole step on
+    one device (the latency plan of seamless-m4t-large-v2's does); at
+    least one must split it."""
+    from repro_torch.core import analyzer, planner
+    from repro_torch.core.costmodel import CATALOG
+    from repro_torch.core.executor import LogicalDevice, build_executable
+    from repro_torch.launch.serve import PLAN_PAIR
+    M = k.M
+    dev = torch.device(DEV, torch.cuda.current_device())
+    cache_kw, _, step_kw = model_inputs(cfg, PROMPT)
+    pos = torch.zeros(B, dtype=torch.int32, device=dev)
+    extra = tuple(step_kw(pos).values())
+
+    def step(p, c, t, q, *p3):
+        return M.decode_step(p, cfg, t, c, q, tagged=True,
+                             **step_positions3(p3))
+
+    t = time.perf_counter()
+    traced = analyzer.analyze(
+        step, params, M.init_cache(cfg, B, MAX_LEN, device=dev, **cache_kw),
+        torch.zeros((B, 1), dtype=torch.int32, device=dev), pos, *extra,
+        state_argnums=(1,))
+    pinned = traced.state_readers | traced.state_writers
+    g = analyzer.pin_nodes(traced.graph, pinned, 0)
+    traced = traced.with_graph(g)
+    devs = [CATALOG[d] for d in PLAN_PAIR]
+    plans = {pol: planner.plan(g, devs, policy=pol)
+             for pol in ("latency", "throughput")}
+    trace_counts(cfg, traced, f"and planned in "
+                 f"{time.perf_counter() - t:.1f} s; {len(pinned)} nodes "
+                 "reading or writing the caches pinned")
+    for pol, p in plans.items():
+        log(f"[tessera] {cfg.name} {pol} plan for {'+'.join(PLAN_PAIR)} "
+            f"(modeled, not measured): {p.summary()}, bottleneck "
+            f"{p.bottleneck * 1e3:.3f} ms")
+    lds = [LogicalDevice(dev, torch.cuda.Stream(dev), name=f"cuda/{i}")
+           for i in range(2)]
+    exes = {pol: build_executable(traced, p, lds) for pol, p in plans.items()}
+    if max(e.num_units for e in exes.values()) < 2:
+        raise AssertionError(f"{cfg.name}: no plan splits the step across "
+                             "the two streams")
+    tessera_steps(cfg, params, k, exes)
+
+
 def init_params(M, cfg):
     g = torch.Generator(device=DEV)
     g.manual_seed(0)
@@ -2298,6 +2715,7 @@ def main() -> int:
     errs = check_attention(g, FK, FR)
     rows = time_attention(g, FK, FR, errs) + check_and_time_gmm(g, GK, GR)
     rows += check_and_time_wkv(g, WK, WR) + check_and_time_ssd(g, SK, SR)
+    rows += check_and_time_encdec_vlm(g, FK, FR)
     check_two_streams(g, FK, FR, WK, WR)
     log_phase("kernels")
     launches = {}
@@ -2350,6 +2768,10 @@ def main() -> int:
 
     phase_tessera(configs, k)
     log_phase("tessera")
+    for name in ENCDEC_VLM:
+        cfg = configs.get(name)
+        launches.update(phase_encdec_vlm(cfg, k, rows))
+        log_phase(cfg.family)
 
     for row in rows:
         row["launches"] = launches[row["name"]]

@@ -39,24 +39,33 @@ def _unstack(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+# the stacked layer groups of a JAX parameter tree (an encdec model has
+# both)
+STACKED = ("layers", "encoder")
+
+
 def params_from_jax(params: Dict[str, Any],
                     device: DeviceLike = None) -> Dict[str, Any]:
-    """JAX decoder parameters (stacked ``layers`` leaves with a leading
-    layer axis, e.g. MoE experts (L, E, d, f)) -> the port's parameters
-    (a list of per-layer dicts).  Dtypes are kept: the fp32 MoE router
-    stays fp32 in a bf16 model."""
+    """JAX model parameters (stacked ``layers`` and ``encoder`` leaves
+    with a leading layer axis, e.g. MoE experts (L, E, d, f)) -> the
+    port's parameters (a list of per-layer dicts for each).  Dtypes are
+    kept: the fp32 MoE router stays fp32 in a bf16 model."""
     out = {k: tree_to_torch(v, device) for k, v in params.items()
-           if k != "layers"}
-    first = params["layers"]
-    while isinstance(first, dict):
-        first = next(iter(first.values()))
-    out["layers"] = [tree_to_torch(_unstack(params["layers"], i), device)
-                     for i in range(np.asarray(first).shape[0])]
+           if k not in STACKED}
+    for k in STACKED:
+        if k not in params:
+            continue
+        first = params[k]
+        while isinstance(first, dict):
+            first = next(iter(first.values()))
+        out[k] = [tree_to_torch(_unstack(params[k], i), device)
+                  for i in range(np.asarray(first).shape[0])]
     return out
 
 
 def cache_from_jax(cache: Dict[str, Any],
                    device: DeviceLike = None) -> Dict[str, Any]:
-    """JAX cache pytree ``{"kv": {"k", "v"}}`` (L, B, T, Hkv, D) -> the
-    port's, same structure and layout."""
+    """JAX cache pytree (``{"kv": {"k", "v"}}`` (L, B, T, Hkv, D), with
+    top-level ``cross_k`` / ``cross_v`` for encdec) -> the port's, same
+    structure and layout."""
     return tree_to_torch(cache, device)

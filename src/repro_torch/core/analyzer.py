@@ -168,7 +168,8 @@ def _kernel_flops(name: str, args) -> float:
         q, k = args[0], args[1]
         B, H, D = q.shape
         return 4.0 * B * H * k.shape[1] * D
-    if name == "flash_prefill":           # full Sq x Skv logits, masked
+    if name == "flash_prefill":           # full Sq x Skv logits, causal
+                                          # (masked) or not
         q, k = args[0], args[1]
         B, Sq, H, D = q.shape
         return 4.0 * B * H * Sq * k.shape[1] * D

@@ -1,6 +1,8 @@
 /*
- * K2: causal GQA prefill attention, for Hopper (sm_90a).  Built by
- * kernel.py with nvcc into a shared library with a plain C interface.
+ * K2: GQA prefill attention, causal (a decoder's prompt) or not (an
+ * encoder's self-attention, cross-attention over an encoder's K/V), for
+ * Hopper (sm_90a).  Built by kernel.py with nvcc into a shared library
+ * with a plain C interface.
  *
  * Replaces: src/repro/kernels/flash_attention/kernel.py,
  *   flash_attention_prefill (pl.pallas_call of _prefill_kernel).
@@ -42,7 +44,10 @@
  *    at p sees keys in (p - window, p], as the Pallas kernel's `window`),
  *    start at the first tile inside the first position's window; masks
  *    are computed only on tiles that cross the diagonal, the window's
- *    edge or the key tail;
+ *    edge or the key tail.  Not causal, every item reads all the key
+ *    tiles and only the last, ragged one is masked (key < Skv); the items
+ *    are then all of one length, which the longest-first order and the
+ *    snake deal out evenly as they are;
  *  - online softmax in fp32 in the log2 domain: the row max on the raw
  *    logits, each weight one FFMA and one ex2;
  *  - the output, normalised once, goes out as whole rows of 16-byte
@@ -98,7 +103,7 @@ __global__ void __launch_bounds__(THREADS)
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        int Sq, int Skv, int H, int Hkv, int q_offset,
-                       int window, float scale) {
+                       int window, int causal, float scale) {
   constexpr int DP = D + 1;   // padded Q/K row (floats)
   constexpr int NJ = D / 8;   // output columns per thread
   extern __shared__ float smem[];
@@ -133,9 +138,9 @@ __global__ void __launch_bounds__(THREADS)
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
 
-  // keys this tile can see: positions <= q_offset + q0 + nq - 1, and
-  // inside the window of its first query
-  const int kv_end = min(Skv, q_offset + q0 + nq);
+  // keys this tile can see: positions <= q_offset + q0 + nq - 1 (all
+  // Skv when not causal), and inside the window of its first query
+  const int kv_end = causal ? min(Skv, q_offset + q0 + nq) : Skv;
   for (int k0 = kv_begin(q_offset, q0, window); k0 < kv_end; k0 += BK) {
     const int n = min(BK, kv_end - k0);  // valid keys in this tile
     __syncthreads();                     // the previous tile is consumed
@@ -177,7 +182,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = cg + 8 * j;
-        if (!(c < n && k0 + c <= qpos && k0 + c > qpos - window))
+        if (!(c < n && (!causal || k0 + c <= qpos) &&
+              k0 + c > qpos - window))
           s[i][j] = NEG;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -191,7 +197,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = cg + 8 * j;
-        const float p = (c < n && k0 + c <= qpos && k0 + c > qpos - window)
+        const float p = (c < n && (!causal || k0 + c <= qpos) &&
+                         k0 + c > qpos - window)
                             ? expf(s[i][j] - m_new)
                             : 0.f;
         ps[(rg * 4 + i) * PP + c] = p;
@@ -253,15 +260,16 @@ struct Wg {
 
 struct Shape {
   int Sq, Skv, H, Hkv, B, q_offset, window;
-  int hp;     // query heads of a work item (they share one KV head)
-  int pr;     // positions of a work item: 64 / hp
-  int tiles;  // position tiles: ceil(Sq / pr)
+  int causal;  // 0: every query sees all Skv keys
+  int hp;      // query heads of a work item (they share one KV head)
+  int pr;      // positions of a work item: 64 / hp
+  int tiles;   // position tiles: ceil(Sq / pr)
 };
 
 // A work item: positions q0 .. q0 + pr - 1 of query heads h0 .. h0 + hp - 1
 // of row b; the key tiles [t_begin, t_end) are the ones its positions see
-// (inside the first one's window, up to the last one's diagonal).  Items
-// are numbered longest first.
+// (inside the first one's window, up to the last one's diagonal; all of
+// them when not causal).  Items are numbered longest first.
 struct Item {
   int q0, h0, hk, b, p_lo, p_hi, t_begin, t_end;
 };
@@ -276,7 +284,7 @@ __device__ __forceinline__ Item item_at(int i, const Shape& s) {
   it.p_lo = s.q_offset + it.q0;
   it.p_hi = it.p_lo + min(s.pr, s.Sq - it.q0) - 1;
   it.t_begin = max(0, it.p_lo - s.window + 1) / 64;
-  it.t_end = (min(s.Skv, it.p_hi + 1) + 63) / 64;
+  it.t_end = ((s.causal ? min(s.Skv, it.p_hi + 1) : s.Skv) + 63) / 64;
   return it;
 }
 
@@ -410,8 +418,8 @@ __global__ void __launch_bounds__(WG_THREADS, 2)
       // or the key tail), online softmax in the log2 domain: the max is
       // taken on the raw logits (the scale is positive), and each weight
       // is one FFMA and one ex2, 2^(s scale - m scale)
-      const bool masked = k0 + 63 > it.p_lo || k0 + 64 > sh.Skv ||
-                          k0 <= it.p_hi - sh.window;
+      const bool masked = (sh.causal && k0 + 63 > it.p_lo) ||
+                          k0 + 64 > sh.Skv || k0 <= it.p_hi - sh.window;
       uint32_t live = 0xffffffffu;
       float mx[2] = {NEG, NEG};
       if (masked) {
@@ -422,8 +430,8 @@ __global__ void __launch_bounds__(WG_THREADS, 2)
           for (int e = 0; e < 4; ++e) {
             const int key = k0 + jj * 8 + 2 * c4 + (e & 1);
             const int qp = pos[e >> 1];
-            const bool ok =
-                key < sh.Skv && key <= qp && key > qp - sh.window;
+            const bool ok = key < sh.Skv && (!sh.causal || key <= qp) &&
+                            key > qp - sh.window;
             live |= (uint32_t)ok << (jj * 4 + e);
             if (ok) mx[e >> 1] = fmaxf(mx[e >> 1], sc[jj * 4 + e]);
           }
@@ -542,7 +550,7 @@ __global__ void __launch_bounds__(WG_THREADS, 2)
 template <int D>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v,
                         void* o, int B, int Sq, int Skv, int H, int Hkv,
-                        int q_offset, int window, float scale,
+                        int q_offset, int window, int causal, float scale,
                         cudaStream_t stream) {
   constexpr size_t kSmem = fma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -553,7 +561,7 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v,
   prefill_fma_kernel<D><<<grid, THREADS, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, Hkv,
-      q_offset, window, scale);
+      q_offset, window, causal, scale);
   return cudaGetLastError();
 }
 
@@ -574,12 +582,12 @@ inline cudaError_t attention_map(CUtensorMap* map, const void* p, int D,
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* o, int B, int Sq, int Skv, int H, int Hkv,
-                        int q_offset, int window, float scale,
+                        int q_offset, int window, int causal, float scale,
                         cudaStream_t stream) {
   const int rep = H / Hkv;
   Shape sh;
   sh.Sq = Sq, sh.Skv = Skv, sh.H = H, sh.Hkv = Hkv, sh.B = B;
-  sh.q_offset = q_offset, sh.window = window;
+  sh.q_offset = q_offset, sh.window = window, sh.causal = causal;
   sh.hp = rep % 8 == 0 ? 8 : rep % 4 == 0 ? 4 : rep % 2 == 0 ? 2 : 1;
   sh.pr = ROWS / sh.hp;
   sh.tiles = (Sq + sh.pr - 1) / sh.pr;
@@ -611,36 +619,40 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 template <int D>
 int launch_dtype(int dtype, const void* q, const void* k, const void* v,
                  void* o, int B, int Sq, int Skv, int H, int Hkv,
-                 int q_offset, int window, float scale, cudaStream_t s) {
+                 int q_offset, int window, int causal, float scale,
+                 cudaStream_t s) {
   if (dtype == 0)
     return launch_fp32<D>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, window,
-                          scale, s);
+                          causal, scale, s);
   if (dtype == 1)
     return launch_bf16<D>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, window,
-                          scale, s);
+                          causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim: 64, 112 or 128.  A query at
-// position p sees keys at positions in (p - window, p]; the caller passes
-// a window of at least q_offset + Sq for none.  Returns the cudaError_t
-// of the launch.
+// dtype: 0 = float32, 1 = bfloat16; head_dim: 64, 112 or 128.  Causal
+// (causal != 0): a query at position p sees keys at positions in
+// (p - window, p]; the caller passes a window of at least q_offset + Sq
+// for none.  Not causal: every query sees all Skv keys; the caller passes
+// q_offset 0 and a window of at least Sq (it then masks nothing).
+// Returns the cudaError_t of the launch.
 extern "C" int fa_prefill(int dtype, int head_dim, const void* q,
                           const void* k, const void* v, void* o, int B,
                           int Sq, int Skv, int H, int Hkv, int q_offset,
-                          int window, float scale, void* stream) {
+                          int window, int causal, float scale,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64)
     return launch_dtype<64>(dtype, q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
-                            window, scale, s);
+                            window, causal, scale, s);
   if (head_dim == 112)
     return launch_dtype<112>(dtype, q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
-                             window, scale, s);
+                             window, causal, scale, s);
   if (head_dim == 128)
     return launch_dtype<128>(dtype, q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
-                             window, scale, s);
+                             window, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,6 @@
 """Build, bind and launch the flash-attention kernels K1 (decode) and K2
-(prefill), written in CUDA C++ for Hopper (``csrc/*.cu``), at head_dim
-64, 112 or 128.
+(prefill, causal or not), written in CUDA C++ for Hopper
+(``csrc/*.cu``), at head_dim 64, 112 or 128.
 
 The sources are built at first use by ``repro_torch.kernels.nvcc`` into
 ``_build/`` beside them (never at import).
@@ -72,8 +72,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.fa_decode_error_string.argtypes = [I]
         lib.fa_decode_error_string.restype = ctypes.c_char_p
     else:
-        lib.fa_prefill.argtypes = [I, I, P, P, P, P, I, I, I, I, I, I, I, F,
-                                   P]
+        lib.fa_prefill.argtypes = [I, I, P, P, P, P, I, I, I, I, I, I, I, I,
+                                   F, P]
         lib.fa_prefill.restype = I
         lib.fa_prefill_error_string.argtypes = [I]
         lib.fa_prefill_error_string.restype = ctypes.c_char_p
@@ -193,12 +193,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  q_offset: int = 0,
-                  window: Optional[int] = None) -> torch.Tensor:
+                  q_offset: int = 0, window: Optional[int] = None,
+                  causal: bool = True) -> torch.Tensor:
     """K2.  q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D); causal with query
     row i at absolute position ``q_offset + i``, and with a sliding
-    ``window`` it sees only keys at positions > its own - window.
-    -> (B, Sq, H, D)."""
+    ``window`` it sees only keys at positions > its own - window.  Not
+    ``causal``, every query sees all Skv keys; no model sets an offset or
+    a window there, and the kernel takes neither.  -> (B, Sq, H, D)."""
+    if not causal and (q_offset or window is not None):
+        raise ValueError("flash_prefill: a non-causal call takes no "
+                         f"q_offset ({q_offset}) and no window ({window})")
     _check_common("flash_prefill", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("flash_prefill: q (B,Sq,H,D), k/v (B,Skv,Hkv,D)")
@@ -220,8 +224,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.fa_prefill(_DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(),
                              v.data_ptr(), o.data_ptr(), B, Sq, Skv, H, Hkv,
-                             int(q_offset), int(win), 1.0 / math.sqrt(D),
-                             stream)
+                             int(q_offset), int(win), int(causal),
+                             1.0 / math.sqrt(D), stream)
     nvcc.raise_on("flash_prefill", lib.fa_prefill_error_string, err)
     LAUNCHES["flash_prefill"] += 1
     return o

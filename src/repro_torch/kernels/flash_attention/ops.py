@@ -13,15 +13,18 @@ from repro_torch.kernels import library
 from repro_torch.kernels.flash_attention import kernel, ref
 
 
-def _prefill_kernel(q, k, v, q_offset, window):
-    return kernel.flash_prefill(q, k, v, q_offset=q_offset, window=window)
+# ``causal`` has its schema default in each implementation: the
+# dispatcher drops an argument equal to the default before the call
+def _prefill_kernel(q, k, v, q_offset, window, causal=True):
+    return kernel.flash_prefill(q, k, v, q_offset=q_offset, window=window,
+                                causal=causal)
 
 
 # the plain versions' outputs are made contiguous, as the kernels' are
 # (and as the fake implementation says)
-def _prefill_plain(q, k, v, q_offset, window):
-    return ref.prefill_attention(q, k, v, q_offset=q_offset,
-                                 window=window).contiguous()
+def _prefill_plain(q, k, v, q_offset, window, causal=True):
+    return ref.prefill_attention(q, k, v, q_offset=q_offset, window=window,
+                                 causal=causal).contiguous()
 
 
 def _decode_plain(q, k, v, lengths):
@@ -36,16 +39,18 @@ FLASH_DECODE = library.define(
     "flash_decode(Tensor q, Tensor k, Tensor v, Tensor lengths) -> Tensor",
     kernel.flash_decode, _decode_plain, _like_q)
 FLASH_PREFILL = library.define(
-    "flash_prefill(Tensor q, Tensor k, Tensor v, int q_offset, int? window)"
-    " -> Tensor", _prefill_kernel, _prefill_plain, _like_q)
+    "flash_prefill(Tensor q, Tensor k, Tensor v, int q_offset, int? window,"
+    " bool causal=True) -> Tensor", _prefill_kernel, _prefill_plain, _like_q)
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       *, q_offset: int = 0,
-                      window: Optional[int] = None) -> torch.Tensor:
-    """Causal GQA prefill, optionally over a sliding ``window``.
+                      window: Optional[int] = None,
+                      causal: bool = True) -> torch.Tensor:
+    """GQA prefill: causal, optionally over a sliding ``window``, or not
+    causal (every query sees every key: an encoder, cross-attention).
     q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D)."""
-    return FLASH_PREFILL(q, k, v, q_offset, window)
+    return FLASH_PREFILL(q, k, v, q_offset, window, causal)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -23,13 +23,16 @@ NEG_INF = -1e30
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       *, q_offset: int = 0,
-                      window: Optional[int] = None) -> torch.Tensor:
-    """Causal GQA attention.  q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D).
+                      window: Optional[int] = None,
+                      causal: bool = True) -> torch.Tensor:
+    """GQA attention.  q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D).
 
-    Query row ``i`` sits at absolute position ``q_offset + i`` and sees
-    keys at positions ``<= q_offset + i`` (the model's alignment, not
-    the Pallas kernel's top-left one) and, with a sliding ``window``,
-    ``> q_offset + i - window``.  Returns (B, Sq, H, D)."""
+    Causal: query row ``i`` sits at absolute position ``q_offset + i``
+    and sees keys at positions ``<= q_offset + i`` (the model's
+    alignment, not the Pallas kernel's top-left one) and, with a sliding
+    ``window``, ``> q_offset + i - window``.  Not ``causal`` (an encoder,
+    cross-attention): every query sees every key.  Returns (B, Sq, H,
+    D)."""
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -37,7 +40,8 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(), k.float())
     qpos = q_offset + torch.arange(Sq, device=q.device)
     kpos = torch.arange(Skv, device=q.device)
-    mask = kpos[None, :] <= qpos[:, None]                    # (Sq, Skv)
+    mask = kpos[None, :] <= qpos[:, None] if causal \
+        else torch.ones(Sq, Skv, dtype=torch.bool, device=q.device)
     if window is not None:
         mask &= kpos[None, :] > qpos[:, None] - window
     logits = logits.masked_fill(~mask, NEG_INF)

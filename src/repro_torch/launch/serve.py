@@ -15,7 +15,8 @@ CUDA device (or the CPU with ``--device cpu``).
       --disaggregate --policy throughput
 
 Dense, MoE, ssm (rwkv6) and hybrid (zamba2) architectures are served;
-the encdec and vlm ones raise ``NotImplementedError``.
+the encdec and vlm ones raise ``NotImplementedError``, as the reference
+engine refuses them (their model entry points run: ``models.model``).
 
 ``--disaggregate`` traces the decode step (``core.analyzer``), plans it
 for the GPU pair ``PLAN_PAIR`` under ``--policy`` (``core.planner``,
@@ -49,7 +50,7 @@ from repro_torch.core.costmodel import CATALOG, PAPER_PAIRS
 from repro_torch.core.executor import build_executable, logical_devices
 from repro_torch.models import model as M
 from repro_torch.serving.engine import (Request, ServingEngine,
-                                        requests_from_trace)
+                                        check_servable, requests_from_trace)
 from repro_torch.serving.spec import DeploymentSpec
 from repro_torch.serving.workload import make_trace
 
@@ -164,6 +165,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         return out
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))
+    check_servable(cfg)
     params = M.init_params(cfg, device=device)
 
     decode_fn = None

@@ -1,6 +1,6 @@
-"""Decoder layers — the PyTorch counterpart of the dense, MoE and
-shared-attention parts of ``repro/models/layers.py`` (the recurrent
-blocks are in ``ssm.py``).
+"""Layers — the PyTorch counterpart of the attention (self, encoder and
+cross), M-RoPE, MLP and MoE parts of ``repro/models/layers.py`` (the
+recurrent blocks are in ``ssm.py``).
 
 Plain functions over parameter dicts whose layouts are the JAX ones:
 ``wq`` (d, H, hd), ``wk``/``wv`` (d, Hkv, hd), ``wo`` (H, hd, d), MLP
@@ -17,10 +17,10 @@ position), so serving keeps one cache allocation for its lifetime.  A
 sliding-window model's cache is a ring buffer of ``min(max_len,
 window)`` slots: position p lives in slot ``p % T``.
 
-Ported: the dense, MoE, ssm (rwkv6) and hybrid (zamba2) families.  Not
-ported yet: M-RoPE, logit softcap, expert-parallel MoE
-(``moe_impl="ep"``) and the encdec/vlm families (``check_supported``
-raises ``NotImplementedError``).
+Ported: the dense, MoE, ssm (rwkv6), hybrid (zamba2), encdec
+(seamless) and vlm (qwen2-vl, M-RoPE) families.  Not ported yet: logit
+softcap and expert-parallel MoE (``moe_impl="ep"``); ``check_supported``
+raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
@@ -35,20 +35,20 @@ from repro_torch.kernels.moe_gmm import ops as G
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the options the port does not serve yet."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            "(dense, moe, ssm and hybrid only)")
+            f"{cfg.name}: family {cfg.family!r} is not ported "
+            f"({', '.join(FAMILIES)} only)")
     if cfg.family == "hybrid" and cfg.num_layers % cfg.hybrid_attn_every:
         # the JAX model groups the layers as (num_layers // k, k) too
         raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not "
                          f"split into groups of {cfg.hybrid_attn_every}")
-    for flag, what in ((cfg.mrope, "M-RoPE"),
-                       (cfg.attn_logit_softcap > 0.0, "logit softcap"),
+    for flag, what in ((cfg.attn_logit_softcap > 0.0, "logit softcap"),
                        (cfg.family == "moe" and cfg.moe_impl == "ep",
                         "expert-parallel MoE (needs a device mesh)")):
         if flag:
@@ -82,6 +82,20 @@ def rope_tables(positions: torch.Tensor, head_dim: int,
     return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
 
 
+def mrope_tables(positions3: torch.Tensor, head_dim: int, theta: float,
+                 sections: Tuple[int, ...]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multimodal RoPE (qwen2-vl): ``rope_tables`` for position ids
+    (3, B, S) = (t, h, w), the D/2 frequency channels split into runs of
+    ``sections`` channels, run i rotated by axis i's ids (``apply_mrope``
+    of the JAX package).  (B, S, 1, D/2) fp32, for ``apply_rope``."""
+    freqs = rope_frequencies(head_dim, theta, positions3.device)
+    chan = torch.cat([positions3[i][..., None].expand(
+        *positions3.shape[1:], n) for i, n in enumerate(sections)], dim=-1)
+    ang = chan.float() * freqs                                  # (B,S,D/2)
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+
+
 def apply_rope(x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor]
                ) -> torch.Tensor:
     """Half-split RoPE.  x: (B, S, H, D); rope: ``rope_tables(...)``."""
@@ -103,12 +117,14 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               rope: Tuple[torch.Tensor, torch.Tensor],
-              kv_cache: Dict[str, torch.Tensor],
+              kv_cache: Optional[Dict[str, torch.Tensor]],
               decode_pos: Optional[DecodePos] = None,
               offset: Optional[int] = None) -> torch.Tensor:
-    """GQA attention over one layer's cache ``{"k", "v"}`` (B, T, Hkv, D);
-    ``rope`` holds the tables of this call's positions.
+    """GQA self-attention over one layer's cache ``{"k", "v"}`` (B, T,
+    Hkv, D); ``rope`` holds the tables of this call's positions.
 
+    * ``kv_cache`` None: an encoder, with no cache — every query attends
+      over all of this call's keys (K2 not causal).
     * ``decode_pos`` and ``offset`` None: prefill fill — this prompt's
       K/V go to cache slots [0, S) (a ring buffer shorter than S keeps
       the last T tokens, each at slot ``position % T``) and the queries
@@ -139,7 +155,10 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q = apply_rope(q, rope)
     k = apply_rope(k, rope)
 
-    if decode_pos is not None:
+    if kv_cache is None:
+        out = FA.prefill_attention(q, k, v, q_offset=0,
+                                   window=cfg.sliding_window, causal=False)
+    elif decode_pos is not None:
         _dyn_update(kv_cache["k"], k, decode_pos)
         _dyn_update(kv_cache["v"], v, decode_pos)
         out = FA.decode_attention(q[:, 0].contiguous(), kv_cache["k"],
@@ -163,9 +182,45 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         out = FA.prefill_attention(q, k.to(kv_cache["k"].dtype),
                                    v.to(kv_cache["v"].dtype), q_offset=0,
                                    window=cfg.sliding_window)
-    H, hd = out.shape[2], out.shape[3]
-    return (out.reshape(B * S, H * hd)
-            @ p["wo"].reshape(H * hd, -1)).view(B, S, -1)
+    return _out_project(out, p["wo"])
+
+
+def _out_project(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matmul."""
+    B, S, H, hd = out.shape
+    return (out.reshape(B * S, H * hd) @ wo.reshape(H * hd, -1)).view(
+        B, S, -1)
+
+
+def cross_kv(p: Params, enc_out: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder's keys and values for one cross-attention layer,
+    (B, Se, Hkv, D) each: projections only, as the reference's (no
+    bias, no norm, no RoPE)."""
+    return _project(enc_out, p["wk"]), _project(enc_out, p["wv"])
+
+
+def cross_attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                    k: torch.Tensor, v: torch.Tensor,
+                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention of the decoder's ``x`` (B, S, d) over an encoder's keys
+    and values ``k``/``v`` (B, Se, Hkv, D), not causal: q gets ``bq`` and
+    ``q_norm`` where the configuration has them and no RoPE.  A prefill
+    runs K2 non-causal; a decode step (``lengths`` (B,) int32 = Se for
+    every row, built once per step) runs K1 over the whole cross cache.
+    Returns the output projection (B, S, d)."""
+    q = _project(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
+    if lengths is not None:
+        out = FA.decode_attention(q[:, 0].contiguous(), k, v,
+                                  lengths)[:, None]
+    else:
+        out = FA.prefill_attention(q, k, v, q_offset=0,
+                                   window=cfg.sliding_window, causal=False)
+    return _out_project(out, p["wo"])
 
 
 class DecodePos(NamedTuple):

@@ -1,24 +1,30 @@
-"""Decoder assembly — the PyTorch counterpart of the dense, MoE, ssm
-(rwkv6) and hybrid (zamba2) branches of ``repro/models/model.py``.
+"""Model assembly — the PyTorch counterpart of the dense, MoE, ssm
+(rwkv6), hybrid (zamba2), encdec (seamless) and vlm (qwen2-vl) branches
+of ``repro/models/model.py``.
 
 Entry points:
   init_params(cfg, generator=, device=)      parameters on the device
-  init_cache(cfg, batch, max_len, device=)    zero cache
-  prefill(params, cfg, tokens, cache, last_pos=, offset=)
-                                             fill cache (or one chunk), logits
+  init_cache(cfg, batch, max_len, device=, enc_len=)    zero cache
+  prefill(params, cfg, tokens, cache, last_pos=, offset=, patch_embeds=,
+          positions3=, enc_embeds=)          fill cache (or one chunk), logits
   iter_prefill_chunks / prefill_chunked      a prefill as fixed-size chunks
-  decode_step(params, cfg, tokens, cache, pos)     one token per row
+  decode_step(params, cfg, tokens, cache, pos, positions3=)
+                                             one token per row
   export_kv / import_kv and their per-layer shards, pack_kv_blocks /
   gather_kv_blocks                           move one session's state
 
-Parameters are the JAX pytree with the stacked ``layers`` leaves split
-into a Python list of per-layer dicts (the hybrid's one ``shared_attn``
-block stays a single dict); the layer stack is a Python loop over it.
+Parameters are the JAX pytree with the stacked ``layers`` (and an
+encdec's ``encoder``) leaves split into a Python list of per-layer dicts
+(the hybrid's one ``shared_attn`` block stays a single dict); the layer
+stack is a Python loop over it.
 The cache keeps the JAX structure and layouts: ``{"kv": {"k", "v"}}``
 with leaves (L, B, T, Hkv, D) (T = min(max_len, window) for a
 sliding-window model, a ring buffer); ``{"rwkv": {"tm_x", "wkv",
 "cm_x"}}`` for ssm; ``{"mamba": {"ssm", "conv"}, "kv": ...}`` for
-hybrid, whose KV cache has one layer per shared-attention application.
+hybrid, whose KV cache has one layer per shared-attention application;
+``{"kv": ..., "cross_k", "cross_v"}`` for encdec, the cross caches
+top-level tensors (L, B, enc_len, Hkv, D) that a prefill fills from the
+encoder's output.
 ``prefill``/``decode_step`` update the cache in place (returning the
 same object).  A recurrent state integrates every token it is given, so
 ssm/hybrid prompts in one ``prefill`` must have equal lengths (the
@@ -76,6 +82,20 @@ def init_params(cfg: ModelConfig, *,
                         "tm": SM.init_rwkv6(cfg, g, dev),
                         "ln2": L.init_rmsnorm(d, dt, dev)}
                        for _ in range(cfg.num_layers)]
+    elif cfg.family == "encdec":        # seamless backbone
+        p["encoder"] = [{"ln1": L.init_rmsnorm(d, dt, dev),
+                         "attn": L.init_attention(cfg, g, dev),
+                         "ln2": L.init_rmsnorm(d, dt, dev),
+                         "mlp": L.init_mlp(cfg, g, dev)}
+                        for _ in range(cfg.encoder_layers)]
+        p["layers"] = [{"ln1": L.init_rmsnorm(d, dt, dev),
+                        "attn": L.init_attention(cfg, g, dev),
+                        "ln_x": L.init_rmsnorm(d, dt, dev),
+                        "xattn": L.init_attention(cfg, g, dev),
+                        "ln2": L.init_rmsnorm(d, dt, dev),
+                        "mlp": L.init_mlp(cfg, g, dev)}
+                       for _ in range(cfg.num_layers)]
+        p["enc_norm"] = L.init_rmsnorm(d, dt, dev)
     elif cfg.family == "hybrid":        # zamba2
         p["layers"] = [{"ln": L.init_rmsnorm(d, dt, dev),
                         "mamba": SM.init_mamba2(cfg, g, dev)}
@@ -84,7 +104,7 @@ def init_params(cfg: ModelConfig, *,
                             "attn": L.init_attention(cfg, g, dev),
                             "ln2": L.init_rmsnorm(d, dt, dev),
                             "mlp": L.init_mlp(cfg, g, dev)}
-    else:
+    else:                               # dense, moe, vlm
         ffn, init_ffn = ("moe", L.init_moe) if cfg.family == "moe" \
             else ("mlp", L.init_mlp)
         p["layers"] = [{"ln1": L.init_rmsnorm(d, dt, dev),
@@ -96,7 +116,12 @@ def init_params(cfg: ModelConfig, *,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device: DeviceLike = None) -> Params:
+               device: DeviceLike = None,
+               enc_len: Optional[int] = None) -> Params:
+    """A zero cache of ``batch`` rows and ``max_len`` positions; an
+    encdec model's cross caches hold ``enc_len`` (default ``max_len``)
+    encoder positions, the length its prefill's encoder input must
+    have."""
     L.check_supported(cfg)
     dev = resolve_device(device)
     if cfg.family == "ssm":
@@ -106,7 +131,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         return {"mamba": SM.make_mamba2_state(cfg, batch, dev),
                 "kv": L.make_kv_cache(cfg, batch, max_len, dev,
                                       layers=n_attn)}
-    return {"kv": L.make_kv_cache(cfg, batch, max_len, dev)}
+    cache = {"kv": L.make_kv_cache(cfg, batch, max_len, dev)}
+    if cfg.family == "encdec":
+        shape = (cfg.num_layers, batch, enc_len or max_len,
+                 cfg.num_kv_heads, cfg.head_dim)
+        for name in ("cross_k", "cross_v"):
+            cache[name] = torch.zeros(shape, dtype=cfg.torch_dtype,
+                                      device=dev)
+    return cache
 
 
 def _region(tagged: bool, block: str, layer: int):
@@ -169,6 +201,25 @@ def _mamba_block(lp: Params, x: torch.Tensor, cfg: ModelConfig,
     return x + h
 
 
+def _encdec_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                  rope, cache: Dict[str, torch.Tensor],
+                  cross: Tuple[torch.Tensor, torch.Tensor],
+                  decode_pos: Optional[L.DecodePos] = None,
+                  cross_lengths: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """An encdec decoder block: causal self-attention over the KV cache,
+    cross-attention over this layer's encoder K/V ``cross`` and the MLP.
+    Like the reference's encdec bodies it carries no analyzer regions."""
+    h = L.attention(lp["attn"], L.rms_norm(lp["ln1"], x, cfg.norm_eps), cfg,
+                    rope=rope, kv_cache=cache, decode_pos=decode_pos)
+    x = x + h
+    h = L.cross_attention(lp["xattn"], L.rms_norm(lp["ln_x"], x,
+                                                  cfg.norm_eps), cfg,
+                          *cross, lengths=cross_lengths)
+    x = x + h
+    return x + L.mlp(lp["mlp"], L.rms_norm(lp["ln2"], x, cfg.norm_eps), cfg)
+
+
 def _layer_state(tree: Dict[str, torch.Tensor], i: int
                  ) -> Dict[str, torch.Tensor]:
     """Layer ``i``'s views of a stacked state dict."""
@@ -179,19 +230,44 @@ def _run_layers(params: Params, cfg: ModelConfig, x: torch.Tensor,
                 cache: Params, positions: torch.Tensor,
                 decode_pos: Optional[L.DecodePos] = None,
                 offset: Optional[int] = None,
-                tagged: bool = False) -> torch.Tensor:
+                tagged: bool = False,
+                positions3: Optional[torch.Tensor] = None,
+                enc_out: Optional[torch.Tensor] = None,
+                cross_lengths: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
     """The layer stack; with ``tagged`` each block's kernels carry its
     block and layer (the hybrid's shared block: the index of its use).
     ``offset``: a prefill chunk's first position (attention's chunk
     mode); recurrent states carry over through the cache by
-    construction."""
+    construction.  RoPE rotates by ``positions`` (B, S), or with M-RoPE
+    by ``positions3`` (3, B, S) when given; the cache slots come from
+    ``positions`` / ``decode_pos`` either way.  encdec: a prefill
+    (``enc_out``, the encoder's output) first writes each layer's
+    encoder K/V into the cross caches in place; a decode step reads them
+    over ``cross_lengths``."""
     if cfg.family == "ssm":
         for i, lp in enumerate(params["layers"]):
             x = _rwkv_block(lp, x, cfg, _layer_state(cache["rwkv"], i),
                             layer_idx=i, tagged=tagged)
         return x
-    rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    if cfg.mrope and positions3 is not None:
+        rope = L.mrope_tables(positions3, cfg.head_dim, cfg.rope_theta,
+                              cfg.mrope_sections)
+    else:
+        rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     kv = cache["kv"]
+    if cfg.family == "encdec":
+        for i, lp in enumerate(params["layers"]):
+            ck, cv = cache["cross_k"][i], cache["cross_v"][i]
+            if enc_out is not None:
+                k, v = L.cross_kv(lp["xattn"], enc_out)
+                ck.copy_(k)
+                cv.copy_(v)
+            x = _encdec_block(lp, x, cfg, rope=rope,
+                              cache=_layer_state(kv, i), cross=(ck, cv),
+                              decode_pos=decode_pos,
+                              cross_lengths=cross_lengths)
+        return x
     if cfg.family == "hybrid":
         # one shared attention + MLP block (its own KV layer per use)
         # before each group of hybrid_attn_every mamba layers
@@ -219,9 +295,45 @@ def _embed(params: Params, cfg: ModelConfig,
     return L.embed(params["embed"], tokens).to(cfg.torch_dtype)
 
 
+def _embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  patch_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token embeddings; a vlm model's ``patch_embeds`` (B, npat, d)
+    replace positions [0, npat) (the stubbed vision frontend's output)."""
+    x = _embed(params, cfg, tokens)
+    if cfg.family == "vlm" and patch_embeds is not None:
+        npat = patch_embeds.shape[1]
+        if npat > tokens.shape[1]:
+            raise ValueError(f"{npat} patch embeddings exceed the prompt's "
+                             f"{tokens.shape[1]} positions")
+        x[:, :npat] = patch_embeds.to(x.dtype)
+    return x
+
+
+def _encoder_forward(params: Params, cfg: ModelConfig,
+                     enc_embeds: torch.Tensor) -> torch.Tensor:
+    """The bidirectional encoder over precomputed frame embeddings (B, Se,
+    d): RoPE at positions [0, Se), attention not causal (K2), no cache.
+    Returns the normed output (B, Se, d)."""
+    x = enc_embeds.to(cfg.torch_dtype)
+    B, Se, _ = x.shape
+    positions = torch.arange(Se, dtype=torch.int32,
+                             device=x.device).expand(B, Se)
+    rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    for lp in params["encoder"]:
+        h = L.attention(lp["attn"], L.rms_norm(lp["ln1"], x, cfg.norm_eps),
+                        cfg, rope=rope, kv_cache=None)
+        x = x + h
+        x = x + L.mlp(lp["mlp"], L.rms_norm(lp["ln2"], x, cfg.norm_eps),
+                      cfg)
+    return L.rms_norm(params["enc_norm"], x, cfg.norm_eps)
+
+
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache: Params, *, last_pos: Optional[torch.Tensor] = None,
             offset: Optional[int] = None,
+            patch_embeds: Optional[torch.Tensor] = None,
+            positions3: Optional[torch.Tensor] = None,
+            enc_embeds: Optional[torch.Tensor] = None,
             tagged: bool = False) -> Tuple[torch.Tensor, Params]:
     """Process prompts ``tokens`` (B, S) from a fresh cache: fill KV
     slots [0, S) of every attention layer and carry every recurrent
@@ -234,8 +346,19 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     ``offset`` (a Python int) switches to chunk mode: ``tokens`` are the
     prompt slice at positions [offset, offset + S) and the cache holds
     the state of the preceding chunks; ``last_pos`` is chunk-relative.
-    Ring-buffer (sliding-window) caches are not chunkable."""
+    Ring-buffer (sliding-window) caches are not chunkable, nor are the
+    encdec and vlm families (the reference's chunked prefill serves the
+    decoder-only families without M-RoPE).
+
+    vlm: ``patch_embeds`` (B, npat, d) take positions [0, npat) and
+    ``positions3`` (3, B, S) are the M-RoPE ids (without them RoPE is
+    1-D over the positions, as in the reference).  encdec:
+    ``enc_embeds`` (B, enc_len, d) go through the encoder, whose output
+    each decoder layer projects into the cross caches."""
     B, S = tokens.shape
+    if offset is not None and cfg.family in ("encdec", "vlm"):
+        raise ValueError(f"{cfg.name}: chunked prefill serves the "
+                         "decoder-only families without M-RoPE")
     off = 0 if offset is None else int(offset)
     if offset is not None and cfg.sliding_window is not None:
         raise ValueError("chunked prefill is undefined for ring-buffer SWA "
@@ -245,10 +368,19 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         if off + S > T and cfg.sliding_window is None:
             raise ValueError(f"prefill of tokens [{off}, {off + S}) exceeds "
                              f"the cache's {T} slots")
+    enc_out = None
+    if cfg.family == "encdec":
+        enc_len = cache["cross_k"].shape[2]
+        if enc_embeds is None or enc_embeds.shape[1] != enc_len:
+            raise ValueError(f"{cfg.name}: prefill needs enc_embeds of the "
+                             f"cross caches' {enc_len} positions")
+        enc_out = _encoder_forward(params, cfg, enc_embeds)
     positions = torch.arange(off, off + S, dtype=torch.int32,
                              device=tokens.device).expand(B, S)
-    x = _run_layers(params, cfg, _embed(params, cfg, tokens), cache,
-                    positions, offset=offset, tagged=tagged)
+    x = _run_layers(params, cfg, _embed_inputs(params, cfg, tokens,
+                                               patch_embeds),
+                    cache, positions, offset=offset, tagged=tagged,
+                    positions3=positions3, enc_out=enc_out)
     if last_pos is None:
         xl = x[:, -1:]
     else:
@@ -259,20 +391,30 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: Params, pos: torch.Tensor, *, tagged: bool = False
-                ) -> Tuple[torch.Tensor, Params]:
+                cache: Params, pos: torch.Tensor, *,
+                positions3: Optional[torch.Tensor] = None,
+                tagged: bool = False) -> Tuple[torch.Tensor, Params]:
     """One decode step.  tokens: (B, 1) int; pos: (B,) absolute positions
     (each row writes KV slot ``pos``, or ``pos % T`` in a sliding-window
     ring buffer of T slots, and advances its recurrent state by one
-    token).  Returns (logits (B, V), cache).  ``tagged`` marks each
-    block's kernels for the Tessera analyzer (``core.marker``)."""
-    decode_pos = None
+    token).  vlm: ``positions3`` (3, B, 1) are this token's M-RoPE ids,
+    which differ from ``pos`` once an image has gone by: the angle comes
+    from them, the cache slot from ``pos``.  encdec: cross-attention over
+    the whole cross caches.  Returns (logits (B, V), cache).  ``tagged``
+    marks each block's kernels for the Tessera analyzer
+    (``core.marker``)."""
+    decode_pos = cross_lengths = None
     if "kv" in cache:
         cap = cache["kv"]["k"].shape[2] if cfg.sliding_window is not None \
             else None
         decode_pos = L.DecodePos.of(pos, cap)
+    if cfg.family == "encdec":
+        ck = cache["cross_k"]
+        cross_lengths = torch.full((ck.shape[1],), ck.shape[2],
+                                   dtype=torch.int32, device=ck.device)
     x = _run_layers(params, cfg, _embed(params, cfg, tokens), cache,
-                    pos[:, None], decode_pos, tagged=tagged)
+                    pos[:, None], decode_pos, tagged=tagged,
+                    positions3=positions3, cross_lengths=cross_lengths)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg)[:, 0], cache
 
@@ -339,21 +481,42 @@ def prefill_chunked(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 # --------------------------------------------------------------------- #
 # Per-request state movers (handoff, park/activate, migration).  A cache
-# is {component: {leaf: (L, B, ...)}}; attention KV leaves are
-# (L, B, T, Hkv, D).  Exporters return copies; importers write in place.
+# is {component: {leaf: (L, B, ...)} or (L, B, ...)} (an encdec model's
+# cross caches are top-level tensors); attention KV leaves are (L, B, T,
+# Hkv, D).  Exporters return copies; importers write in place.  Only the
+# self-attention KV is ever trimmed to a length: the cross caches, like
+# recurrent state, move whole.
 # --------------------------------------------------------------------- #
+def _each(fn: Callable, part: Any) -> Any:
+    """``fn`` on each tensor of a cache component (a dict of leaves, or
+    one tensor)."""
+    if isinstance(part, dict):
+        return {name: fn(a) for name, a in part.items()}
+    return fn(part)
+
+
+def _pairs(full: Any, val: Any) -> Iterator[Tuple[torch.Tensor,
+                                                  torch.Tensor]]:
+    """(cache tensor, exported tensor) of each leaf of a component."""
+    if isinstance(val, dict):
+        for name, v in val.items():
+            yield full[name], v
+    else:
+        yield full, val
+
+
 def export_kv(cfg: ModelConfig, cache: Params, slot: int,
               length: Optional[int] = None) -> Params:
     """Row ``slot`` of a batched cache as a batch-1 state of the same
     structure, copied.  Attention KV is trimmed to its first ``length``
-    tokens (what a handoff ships); a ring buffer (sliding window) and
-    recurrent state ship whole."""
+    tokens (what a handoff ships); a ring buffer (sliding window),
+    recurrent state and cross caches ship whole."""
     trim = length is not None and cfg.sliding_window is None
     out: Params = {}
-    for key, leaves in cache.items():
-        out[key] = {name: (a[:, slot:slot + 1, :length] if key == "kv" and trim
-                           else a[:, slot:slot + 1]).clone()
-                    for name, a in leaves.items()}
+    for key, part in cache.items():
+        cut = key == "kv" and trim
+        out[key] = _each(lambda a: (a[:, slot:slot + 1, :length] if cut
+                                    else a[:, slot:slot + 1]).clone(), part)
     return out
 
 
@@ -362,9 +525,8 @@ def import_kv(cfg: ModelConfig, cache: Params, slot: int,
     """Write an exported batch-1 state into row ``slot`` of ``cache`` in
     place (the inverse of :func:`export_kv`; attention KV fills the first
     T slots of the row).  Returns ``cache``."""
-    for key, leaves in state.items():
-        for name, val in leaves.items():
-            full = cache[key][name]
+    for key, part in state.items():
+        for full, val in _pairs(cache[key], part):
             if key == "kv":
                 full[:, slot:slot + 1, :val.shape[2]].copy_(val)
             else:
@@ -390,8 +552,8 @@ def kv_state_bytes(state: Params) -> int:
 def cache_layer_counts(cache: Params) -> Dict[str, int]:
     """Leading (layer) dimension of each cache component (a hybrid's
     shared-attention KV has fewer layers than its mamba state)."""
-    return {key: next(iter(leaves.values())).shape[0]
-            for key, leaves in cache.items()}
+    return {key: next(state_leaves(part)).shape[0]
+            for key, part in cache.items()}
 
 
 def export_kv_shard(cfg: ModelConfig, cache: Params, slot: int, key: str,
@@ -400,13 +562,12 @@ def export_kv_shard(cfg: ModelConfig, cache: Params, slot: int, key: str,
     """One layer of one row's component ``key``, copied; for attention
     KV without a window, only the tokens [t0, t1) when ``t0`` is given
     (a ring buffer and recurrent state ship the whole layer)."""
-    out = {}
-    for name, a in cache[key].items():
+    window = key == "kv" and t0 is not None and cfg.sliding_window is None
+
+    def shard(a):
         sub = a[layer:layer + 1, slot:slot + 1]
-        if key == "kv" and t0 is not None and cfg.sliding_window is None:
-            sub = sub[:, :, t0:t1]
-        out[name] = sub.clone()
-    return out
+        return (sub[:, :, t0:t1] if window else sub).clone()
+    return _each(shard, cache[key])
 
 
 def import_kv_window(cfg: ModelConfig, cache: Params, slot: int,
@@ -426,8 +587,7 @@ def import_kv_shard(cfg: ModelConfig, cache: Params, slot: int, key: str,
                     layer: int, shard: Params, t0: int = 0) -> Params:
     """Install one exported layer shard into row ``slot``, in place (the
     inverse of :func:`export_kv_shard`).  Returns ``cache``."""
-    for name, val in shard.items():
-        full = cache[key][name]
+    for full, val in _pairs(cache[key], shard):
         if key == "kv" and cfg.sliding_window is None:
             T = val.shape[2]
             full[layer:layer + 1, slot:slot + 1, t0:t0 + T].copy_(val)

@@ -75,6 +75,21 @@ from repro_torch.serving.kvpool import (PagedKvCache, SessionManager,
 # never reads positions past the query).  Recurrent state (ssm/hybrid)
 # integrates every input token, so a padded row would corrupt it.
 _PAD_SAFE_FAMILIES = ("dense", "moe")
+# The families the engine serves: the decoder-only ones without M-RoPE,
+# as the reference engine's assertion says (encdec needs encoder inputs
+# per request, vlm patch embeddings and M-RoPE ids).
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a configuration the engine does
+    not serve."""
+    L.check_supported(cfg)
+    if cfg.family not in SERVED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the engine serves the decoder-only families "
+            f"{', '.join(SERVED_FAMILIES)}, not {cfg.family!r} (as the "
+            "reference's)")
 
 
 @dataclasses.dataclass
@@ -132,7 +147,7 @@ class ServingEngine:
                  kv_pool_blocks: Optional[int] = None,
                  spill: bool = True, preempt_priority: bool = True,
                  device: DeviceLike = None):
-        L.check_supported(cfg)
+        check_servable(cfg)
         if sync_every < 1:
             raise ValueError(f"sync_every must be >= 1, got {sync_every}")
         if prefill_chunk is not None and prefill_chunk < 1:

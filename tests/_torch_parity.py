@@ -1,9 +1,24 @@
 """Helpers the port's parity tests share: the reference's kernel graph
-carried into the port's ``KernelGraph``, and field-by-field equality of
-the two packages' simulation results."""
+carried into the port's ``KernelGraph``, field-by-field equality of the
+two packages' simulation results, and a vlm prompt's M-RoPE ids."""
 import dataclasses
 
+import numpy as np
+
 from repro_torch.core.graph import KernelGraph, KernelNode
+
+
+def grid_positions3(batch: int, length: int, npat: int, side: int
+                    ) -> np.ndarray:
+    """(3, batch, length) int32 M-RoPE ids of a prompt that starts with an
+    image of ``npat`` patches on a ``side``-wide grid, laid out as
+    Qwen2-VL's ``get_rope_index``: patch i at (t, h, w) = (0, i // side,
+    i % side), then text from the largest id + 1 on all three axes."""
+    p3 = np.zeros((3, length), np.int32)
+    i = np.arange(npat)
+    p3[1, :npat], p3[2, :npat] = i // side, i % side
+    p3[:, npat:] = np.arange(length - npat) + p3.max() + 1
+    return np.broadcast_to(p3[:, None], (3, batch, length)).copy()
 
 
 def to_port(g) -> KernelGraph:

@@ -270,13 +270,19 @@ def test_ops_have_no_python_device_test():
 # --------------------------------------------------------------------- #
 B, T = 2, 16
 # kernel nodes per smoke decode step (2 layers; the hybrid's shared
-# attention block is applied twice)
+# attention block is applied twice; encdec: a self- and a cross-attention
+# K1 per layer)
 KERNEL_NODES = {
     "llama3_8b": {"flash_attention": 2},
     "gpt_oss_20b": {"flash_attention": 2, "ragged_dot": 6},
     "rwkv6_3b": {"scan": 2},
     "zamba2_7b": {"flash_attention": 2},
+    "seamless_m4t_large_v2": {"flash_attention": 4},
+    "qwen2_vl_7b": {"flash_attention": 2},
 }
+# qwen2-vl's step takes this token's M-RoPE ids (3, B, 1) too: text ids
+# that differ from the positions, as after an image
+POSITIONS3 = [[[0], [2]]] * 3
 
 
 def _port_step(arch):
@@ -286,6 +292,12 @@ def _port_step(arch):
     cache = TM.init_cache(cfg, B, T, device="cpu")
     toks = torch.tensor([[3], [5]], dtype=torch.int32)
     pos = torch.tensor([2, 4], dtype=torch.int32)
+    if cfg.family == "vlm":
+        return analyze(lambda p, c, t, q, p3: TM.decode_step(
+            p, cfg, t, c, q, positions3=p3, tagged=True),
+            params, cache, toks, pos,
+            torch.tensor(POSITIONS3, dtype=torch.int32), state_argnums=(1,),
+            fuse=False)
     return analyze(lambda p, c, t, q: TM.decode_step(p, cfg, t, c, q,
                                                      tagged=True),
                    params, cache, toks, pos, state_argnums=(1,), fuse=False)
@@ -295,9 +307,15 @@ def _jax_step(arch):
     cfg = dataclasses.replace(JC.get_smoke(arch), dtype="float32")
     params = JM.init_params(cfg, jax.random.PRNGKey(0))
     cache = JM.init_cache(cfg, B, T)
+    args = (params, cache, jnp.array([[3], [5]], jnp.int32),
+            jnp.array([2, 4], jnp.int32))
+    if cfg.family == "vlm":
+        return JA.analyze(lambda p, c, t, q, p3: JM.decode_step(
+            p, cfg, t, c, q, positions3=p3, scan_layers=False), *args,
+            jnp.array(POSITIONS3, jnp.int32), state_argnums=(1,),
+            fuse=False)
     return JA.analyze(lambda p, c, t, q: JM.decode_step(
-        p, cfg, t, c, q, scan_layers=False), params, cache,
-        jnp.array([[3], [5]], jnp.int32), jnp.array([2, 4], jnp.int32),
+        p, cfg, t, c, q, scan_layers=False), *args,
         state_argnums=(1,), fuse=False)
 
 
@@ -311,12 +329,21 @@ def test_decode_step_one_node_per_kernel_call(arch):
     # writes are state writers
     assert tg.state_writers and tg.state_readers >= tg.state_writers
     tags = {(n.block, n.layer) for n in tg.graph.nodes if n.block}
+    if arch == "seamless_m4t_large_v2":
+        # the reference's encdec bodies carry no markers, nor do the
+        # port's; the cross caches' readers are state readers (K1 reads
+        # them whole)
+        assert not tags
+        kernels = [n.idx for n in _named(tg, "flash_attention")]
+        assert set(kernels) <= tg.state_readers
+        return
     assert {b for b, _ in tags} <= {"attention", "ffn", "moe", "ssm"}
     assert {layer for _, layer in tags} >= {0, 1}
 
 
 @pytest.mark.parametrize("arch", ["llama3_8b", "gpt_oss_20b", "rwkv6_3b",
-                                  "zamba2_7b"])
+                                  "zamba2_7b", "seamless_m4t_large_v2",
+                                  "qwen2_vl_7b"])
 def test_decode_step_matmul_flops_equal_jax(arch):
     """Total matmul FLOPs (the cost model's matrix-unit classes) equal the
     JAX analyzer's on the same config.  The MoE step's expert matmuls:

@@ -21,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_decode, flash_attention_prefill)
+from repro.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro.kernels.flash_attention.ref import (  # noqa: E402
     attention_ref, decode_ref)
 from repro.models.layers import _sdpa_chunked  # noqa: E402
@@ -53,6 +54,42 @@ def test_prefill_matches_jax_references(H, Hkv, S):
                                          interpret=True)):
         np.testing.assert_allclose(
             got, np.asarray(want).transpose(0, 2, 1, 3), **TOL)
+
+
+@pytest.mark.parametrize("Sq,Skv", [(8, 8), (5, 12), (12, 5), (37, 40)])
+@pytest.mark.parametrize("H,Hkv", [(4, 4), (8, 2)])
+def test_non_causal_prefill_matches_jax_references(H, Hkv, Sq, Skv):
+    """K2's non-causal mode (an encoder, cross-attention): every query
+    sees all Skv keys, against the model's ``_sdpa_chunked(causal=False)``
+    and the jitted Pallas ``flash_attention(causal=False)`` in interpret
+    mode, which agree when no causal mask applies."""
+    rng = np.random.default_rng(1000 * Sq + 10 * Skv + H)
+    B, D = 2, 16
+    q, k, v = _randn(rng, B, Sq, H, D), _randn(rng, B, Skv, Hkv, D), \
+        _randn(rng, B, Skv, Hkv, D)
+    got = ref.prefill_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), causal=False).numpy()
+    model = _sdpa_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          causal=False, q_offset=0, window=None, chunk=512)
+    np.testing.assert_allclose(got, np.asarray(model), **TOL)
+    qt, kt, vt = (jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (q, k, v))
+    pallas = flash_attention(qt, kt, vt, causal=False, interpret=True)
+    np.testing.assert_allclose(
+        got, np.asarray(pallas).transpose(0, 2, 1, 3), **TOL)
+    # through the op, on the CPU: the plain version, with the flag kept
+    assert torch.equal(ops.prefill_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=False), torch.from_numpy(got))
+
+
+def test_non_causal_kernel_call_refuses_offset_and_window():
+    """K2 runs non-causal only at q_offset 0 and without a window (no
+    model sets either there): the wrapper raises before it looks for the
+    card, as it does for every call it does not take."""
+    q = torch.zeros(1, 4, 2, 64)
+    for kw in (dict(q_offset=3), dict(window=8)):
+        with pytest.raises(ValueError, match="non-causal"):
+            kernel.flash_prefill(q, q, q, causal=False, **kw)
 
 
 @pytest.mark.parametrize("Sq,Skv", [(5, 12), (9, 40), (1, 7)])

@@ -30,6 +30,8 @@ from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.serving.engine import (Request,  # noqa: E402
                                         ServingEngine)
 
+from _torch_parity import grid_positions3  # noqa: E402
+
 DEVS = [CATALOG[d] for d in PAPER_PAIRS[1]]
 TOL = dict(atol=1e-4, rtol=1e-4)          # the port's JAX parity tolerance
 
@@ -239,8 +241,30 @@ def _family(arch):
     return jcfg, tcfg, params, tparams
 
 
+ENC_LEN = 5                               # encdec: encoder frames
+NPAT = 4                                  # vlm: patches of a 2 x 2 image
+
+
+def _prefill_extras(cfg, rng, S):
+    """The encoder input of an encdec prefill, or the patch embeddings and
+    M-RoPE ids (image at (0, i // 2, i % 2), text from 2 on) of a vlm
+    one, as numpy arrays; and a function of the decode positions giving
+    a vlm step's ids (3, B, 1)."""
+    if cfg.family == "encdec":
+        enc = rng.standard_normal((B, ENC_LEN, cfg.d_model)) * 0.02
+        return {"enc_embeds": enc.astype(np.float32)}, None
+    if cfg.family == "vlm":
+        patches = rng.standard_normal((B, NPAT, cfg.d_model)) * 0.02
+        return ({"patch_embeds": patches.astype(np.float32),
+                 "positions3": grid_positions3(B, S, NPAT, 2)},
+                lambda pos: np.broadcast_to((pos - NPAT + 2)[None, :, None],
+                                            (3, B, 1)).astype(np.int32))
+    return {}, None
+
+
 @pytest.mark.parametrize("arch", ["llama3_8b", "gpt_oss_20b", "rwkv6_3b",
-                                  "zamba2_7b"])
+                                  "zamba2_7b", "seamless_m4t_large_v2",
+                                  "qwen2_vl_7b"])
 def test_decode_step_disaggregated_matches_single_device_and_jax(arch):
     jcfg, tcfg, params, tparams = _family(arch)
     rng = np.random.default_rng(0)
@@ -249,21 +273,33 @@ def test_decode_step_disaggregated_matches_single_device_and_jax(arch):
     toks = rng.integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
     last = np.full(B, S - 1, np.int32) if recurrent \
         else np.array([S - 1, 5, 2], np.int32)
+    if tcfg.family == "vlm":
+        last[2] += NPAT                   # every prompt ends past the image
+    extras, ids_of = _prefill_extras(tcfg, rng, S)
+    enc_len = ENC_LEN if tcfg.family == "encdec" else None
     jl, jc = jax.jit(functools.partial(JM.prefill, params, jcfg))(
-        jnp.asarray(toks), JM.init_cache(jcfg, B, T),
-        last_pos=jnp.asarray(last))
-    tc0 = TM.init_cache(tcfg, B, T, device="cpu")
+        jnp.asarray(toks), JM.init_cache(jcfg, B, T, enc_len=enc_len),
+        last_pos=jnp.asarray(last),
+        **{k: jnp.asarray(v) for k, v in extras.items()})
+    tc0 = TM.init_cache(tcfg, B, T, device="cpu", enc_len=enc_len)
     TM.prefill(tparams, tcfg, torch.from_numpy(toks), tc0,
-               last_pos=torch.from_numpy(last))
+               last_pos=torch.from_numpy(last),
+               **{k: torch.from_numpy(v) for k, v in extras.items()})
 
     tok = torch.from_numpy(np.asarray(jnp.argmax(jl, -1)).astype(np.int32))
     pos = torch.from_numpy(last + 1)
 
-    def step(p, c, t, q):
-        return TM.decode_step(p, tcfg, t, c, q, tagged=True)
+    def step(p, c, t, q, *p3, tagged=True):
+        return TM.decode_step(p, tcfg, t, c, q, tagged=tagged,
+                              positions3=p3[0] if p3 else None)
+
+    def ids(pos):
+        """The step's extra arguments: a vlm step's M-RoPE ids."""
+        return () if ids_of is None else (torch.from_numpy(
+            ids_of(pos.numpy())),)
 
     tg = analyze(step, tparams, copy.deepcopy(tc0), tok[:, None], pos,
-                 state_argnums=(1,))
+                 *ids(pos), state_argnums=(1,))
     g = pin_nodes(tg.graph, tg.state_readers | tg.state_writers, 0)
     tg = tg.with_graph(g)
     caches = {"single": copy.deepcopy(tc0)}
@@ -278,12 +314,15 @@ def test_decode_step_disaggregated_matches_single_device_and_jax(arch):
             for k, c in caches.items()}
     jdecode = jax.jit(functools.partial(JM.decode_step, params, jcfg))
     for _ in range(STEPS):
+        extra = ids(pos)
         jl, jc = jdecode(jnp.asarray(tok.numpy())[:, None], jc,
-                         jnp.asarray(pos.numpy()))
-        single, _ = TM.decode_step(tparams, tcfg, tok[:, None],
-                                   caches["single"], pos)
+                         jnp.asarray(pos.numpy()),
+                         **({"positions3": jnp.asarray(extra[0].numpy())}
+                            if extra else {}))
+        single, _ = step(tparams, caches["single"], tok[:, None], pos,
+                         *extra, tagged=False)
         for policy, exe in exes.items():
-            got, c = exe(tparams, caches[policy], tok[:, None], pos)
+            got, c = exe(tparams, caches[policy], tok[:, None], pos, *extra)
             assert all(a is b for a, b in zip(
                 torch.utils._pytree.tree_leaves(c),
                 torch.utils._pytree.tree_leaves(caches[policy])))
