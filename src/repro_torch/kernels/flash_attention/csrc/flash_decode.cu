@@ -32,9 +32,12 @@
  *    keeps its own online softmax on its accumulator fragments, whose
  *    probabilities feed PV as A without leaving registers; the four warps
  *    are merged through shared memory at the end.  Rows are padded by 16
- *    bytes, so the ldmatrix reads are free of bank conflicts;
- *  - fp32 (the tight check): one thread per channel, the tile staged in
- *    shared memory, FMA for both products;
+ *    bytes, so the ldmatrix reads are free of bank conflicts.  At D 256
+ *    the output fragment alone takes 128 registers a thread, so Q stays
+ *    in shared memory (16 padded rows) and each k-step loads its A
+ *    fragment by ldmatrix instead of holding all 16 in registers;
+ *  - fp32 (the tight check): one thread per channel (two at D 256), the
+ *    tile staged in shared memory, FMA for both products;
  *  - it reads the cache in the model's layout (B, T, Hkv, D) in place and
  *    stops at lengths[b] = pos[b] + 1: tokens past it are never read, and
  *    the ragged tail tile is zero-filled and masked, so T needs no
@@ -154,7 +157,11 @@ __device__ void finish(const float* acc_s, const float* m_s,
 template <int D>
 struct MmaSmem {
   static constexpr int DP = D + 8;  // padded row (bf16): 16 bytes more
-  static constexpr size_t ring = sizeof(bf16) * 2 * STAGES * BK * DP;
+  // Q's A fragments stay in registers up to D 128; at D 256 they would
+  // take 64 registers beside the output's 128, so Q is kept here
+  static constexpr bool Q_SMEM = D > 128;
+  static constexpr size_t ring = sizeof(bf16) * 2 * STAGES * BK * DP +
+                                 (Q_SMEM ? sizeof(bf16) * 16 * DP : 0);
   // after the loop: per-warp output rows, max and sum; the merged rows;
   // the split merge's weights and sums
   static constexpr size_t epilogue =
@@ -172,11 +179,13 @@ __global__ void __launch_bounds__(THREADS)
                       int t_cap, int H, int Hkv, int nsplit, float scale) {
   constexpr int DP = MmaSmem<D>::DP;
   constexpr int KS = D / 16;  // k-steps of QK^T
-  constexpr int NT = D / 8;   // n-tiles of PV (even at D = 64, 112, 128)
+  constexpr int NT = D / 8;   // n-tiles of PV (even at D = 64, 112, 128, 256)
+  constexpr bool Q_SMEM = MmaSmem<D>::Q_SMEM;
   constexpr int CH = D / 8;   // 16-byte chunks per token row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // STAGES x BK x DP
   bf16* vs = ks + STAGES * BK * DP;
+  bf16* qs = vs + STAGES * BK * DP;  // 16 x DP when Q_SMEM
 
   const int hk = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -208,16 +217,28 @@ __global__ void __launch_bounds__(THREADS)
     mma::cp_async_commit();
   }
 
-  // Q as A fragments: rows are the rep query heads (zero past rep)
-  uint32_t qf[KS][4];
+  // Q as A fragments: rows are the rep query heads (zero past rep); held
+  // in registers, or (Q_SMEM) as 16 rows of shared memory that the first
+  // barrier of the loop publishes
+  uint32_t qf[Q_SMEM ? 1 : KS][4];
+  if constexpr (Q_SMEM) {
+    for (int c = tid; c < 16 * CH; c += THREADS) {
+      const int r = c / CH, e = (c % CH) * 8;
+      *reinterpret_cast<uint4*>(qs + r * DP + e) =
+          r < rep ? *reinterpret_cast<const uint4*>(qb + (size_t)r * D + e)
+                  : make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int c = kk * 16 + 2 * t4;
+    for (int kk = 0; kk < KS; ++kk) {
+      const int c = kk * 16 + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = g + (j & 1) * 8, cc = c + (j >> 1) * 8;
-      qf[kk][j] = r < rep
-          ? *reinterpret_cast<const uint32_t*>(qb + (size_t)r * D + cc) : 0u;
+      for (int j = 0; j < 4; ++j) {
+        const int r = g + (j & 1) * 8, cc = c + (j >> 1) * 8;
+        qf[kk][j] = r < rep
+            ? *reinterpret_cast<const uint32_t*>(qb + (size_t)r * D + cc)
+            : 0u;
+      }
     }
   }
 
@@ -244,8 +265,17 @@ __global__ void __launch_bounds__(THREADS)
       uint32_t kf[4];  // matrices: (tokens 0-7 | 8-15) x (k 0-7 | 8-15)
       mma::ldmatrix_x4(kf, kt + ((lane >> 4) * 8 + (lane & 7)) * DP +
                                kk * 16 + ((lane >> 3) & 1) * 8);
-      mma::mma_bf16(s[0], qf[kk], kf[0], kf[1]);
-      mma::mma_bf16(s[1], qf[kk], kf[2], kf[3]);
+      if constexpr (Q_SMEM) {
+        // matrices: (heads 0-7 | 8-15) x (k 0-7), then x (k 8-15)
+        uint32_t qa[4];
+        mma::ldmatrix_x4(qa, qs + (lane & 15) * DP + kk * 16 +
+                                 (lane >> 4) * 8);
+        mma::mma_bf16(s[0], qa, kf[0], kf[1]);
+        mma::mma_bf16(s[1], qa, kf[2], kf[3]);
+      } else {
+        mma::mma_bf16(s[0], qf[kk], kf[0], kf[1]);
+        mma::mma_bf16(s[1], qf[kk], kf[2], kf[3]);
+      }
     }
     // online softmax on the fragments: this thread holds rows g (s[j][0],
     // s[j][1]) and g + 8 (s[j][2], s[j][3]); a row's 16 values sit in the
@@ -375,8 +405,9 @@ constexpr size_t fma_smem_bytes() {
                           MAX_REP * BK + 3 * MAX_REP);
 }
 
-// Thread d < D owns output channel d; K rows are padded to D + 1 floats
-// for conflict-free reads.
+// Thread t owns output channels t, t + THREADS, ... below D (one up to
+// D 128, two at D 256); K rows are padded to D + 1 floats for
+// conflict-free reads.
 template <int D>
 __global__ void __launch_bounds__(THREADS)
     decode_fma_kernel(const float* __restrict__ q,
@@ -412,13 +443,18 @@ __global__ void __launch_bounds__(THREADS)
     ls[tid] = 0.f;
   }
 
-  float acc[MAX_REP];
+  constexpr int CPT = (D + THREADS - 1) / THREADS;  // channels per thread
+  static_assert(D <= THREADS || D % THREADS == 0, "channels per thread");
+  float acc[CPT][MAX_REP];
 #pragma unroll
-  for (int h = 0; h < MAX_REP; ++h) acc[h] = 0.f;
+  for (int j = 0; j < CPT; ++j)
+#pragma unroll
+    for (int h = 0; h < MAX_REP; ++h) acc[j][h] = 0.f;
 
   constexpr int CHUNKS = D / 4;                     // float4 loads per row
   constexpr int ITEMS = BK * CHUNKS / THREADS;      // loads per thread
-  constexpr int BATCH = ITEMS <= 8 ? ITEMS : ITEMS / 2;  // loads in flight
+  constexpr int BATCH =                             // loads in flight
+      ITEMS <= 8 ? ITEMS : ITEMS <= 16 ? ITEMS / 2 : 8;
   static_assert(BK * CHUNKS % THREADS == 0 && ITEMS % BATCH == 0, "tiling");
 
   for (int k0 = t_begin; k0 < t_end; k0 += BK) {
@@ -491,16 +527,25 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
     __syncthreads();
-    // acc[h] (channel d = tid) = acc[h] * alpha[h] + sum_c p[h][c] V[c][d]
+    // acc[j][h] (channel d = tid + j THREADS) = acc[j][h] * alpha[h] +
+    // sum_c p[h][c] V[c][d]
     if (tid < D) {
 #pragma unroll
-      for (int h = 0; h < MAX_REP; ++h)
-        if (h < rep) acc[h] *= as[h];
-      for (int c = 0; c < n; ++c) {
-        const float vv = vs[c * D + tid];
+      for (int j = 0; j < CPT; ++j)
 #pragma unroll
         for (int h = 0; h < MAX_REP; ++h)
-          if (h < rep) acc[h] = fmaf(ps[h * BK + c], vv, acc[h]);
+          if (h < rep) acc[j][h] *= as[h];
+      for (int c = 0; c < n; ++c) {
+        float vv[CPT];
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) vv[j] = vs[c * D + tid + j * THREADS];
+#pragma unroll
+        for (int h = 0; h < MAX_REP; ++h)
+          if (h < rep) {
+            const float p = ps[h * BK + c];
+#pragma unroll
+            for (int j = 0; j < CPT; ++j) acc[j][h] = fmaf(p, vv[j], acc[j][h]);
+          }
       }
     }
   }
@@ -511,8 +556,10 @@ __global__ void __launch_bounds__(THREADS)
   static_assert(MAX_SPLIT <= BK, "split weights fit the score buffer");
   if (tid < D) {
 #pragma unroll
-    for (int h = 0; h < MAX_REP; ++h)
-      if (h < rep) acc_s[h * D + tid] = acc[h];
+    for (int j = 0; j < CPT; ++j)
+#pragma unroll
+      for (int h = 0; h < MAX_REP; ++h)
+        if (h < rep) acc_s[h * D + tid + j * THREADS] = acc[j][h];
   }
   __syncthreads();
   finish<D>(acc_s, ms, ls, wsm, as, rep, o, part_acc, part_ml, tickets, H,
@@ -554,7 +601,7 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim: 64, 112 or 128; rep = H /
+// dtype: 0 = float32, 1 = bfloat16; head_dim: 64, 112, 128 or 256; rep = H /
 // Hkv <= 16; 1 <= nsplit <= 64.  part_acc: float32 (B, H, nsplit,
 // head_dim) and part_ml: float32 (B, H, nsplit, 2), scratch; tickets:
 // int32 (B, Hkv), zero before the call and zero after it.  Returns the
@@ -576,6 +623,9 @@ extern "C" int fa_decode(int dtype, int head_dim, const void* q,
                        tickets, B, t_cap, H, Hkv, nsplit, scale, s);
   if (head_dim == 128)
     return launch<128>(dtype, q, k, v, lengths, o, part_acc, part_ml,
+                       tickets, B, t_cap, H, Hkv, nsplit, scale, s);
+  if (head_dim == 256)
+    return launch<256>(dtype, q, k, v, lengths, o, part_acc, part_ml,
                        tickets, B, t_cap, H, Hkv, nsplit, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -27,18 +27,19 @@
  *    128-byte swizzle; rows past S and columns past D read as zero, so
  *    the query and key tails need no divisibility and head_dim 112 is two
  *    boxes whose second one is partly zeros (its QK^T depth is 7 steps of
- *    16, its PV width 112);
+ *    16, its PV width 112); head_dim 256 is four boxes, 16 QK^T steps and
+ *    the widest PV (m64n256k16, its V spanning four boxes LBO apart);
  *  - a work item is 64 query rows: 64 / hp positions of the hp query heads
  *    that share one KV head (hp the largest of 8, 4, 2, 1 dividing
  *    H / Hkv), so each K/V tile is loaded once for all of them;
  *  - a persistent grid of as many blocks as fit on the card (two an SM at
- *    D 112 and 128, three at D 64) walks the items, longest first, in a
- *    snake order that evens out the blocks' work.  A block is one producer
- *    warp and one consumer warpgroup: the producer loads each item's Q
- *    into one of two buffers and the K and V 64-key tiles into a 2-stage
- *    ring (full / empty mbarriers; K and V complete separately, so QK^T
- *    starts before V lands), running on into the next item while the
- *    consumers finish this one;
+ *    D 112 and 128, three at D 64, one at D 256) walks the items, longest
+ *    first, in a snake order that evens out the blocks' work.  A block is
+ *    one producer warp and one consumer warpgroup: the producer loads
+ *    each item's Q into one of two buffers and the K and V 64-key tiles
+ *    into a 2-stage ring (full / empty mbarriers; K and V complete
+ *    separately, so QK^T starts before V lands), running on into the next
+ *    item while the consumers finish this one;
  *  - the consumers loop over the key tiles an item's positions can see:
  *    they stop at the causal diagonal and, with a sliding window (a query
  *    at p sees keys in (p - window, p], as the Pallas kernel's `window`),
@@ -74,7 +75,7 @@
 
 namespace {
 
-// head_dim D is a template parameter (64, 112 or 128; the wrapper
+// head_dim D is a template parameter (64, 112, 128 or 256; the wrapper
 // rejects any other).
 constexpr int BQ = 64;        // queries per block
 constexpr int BK = 64;        // keys per tile
@@ -299,9 +300,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Blocks an SM the register budget is cut for: two up to D 128; at D 256
+// (193 KiB of shared memory, so one block an SM anyway) the consumers'
+// 64 x 256 fp32 output fragment alone takes 128 registers a thread, and
+// a budget for two blocks (about 200) would spill.
+template <int D>
+constexpr int wg_min_blocks() {
+  return D > 128 ? 1 : 2;
+}
+
 // A persistent grid: each block takes a share of the work items.
 template <int D>
-__global__ void __launch_bounds__(WG_THREADS, 2)
+__global__ void __launch_bounds__(WG_THREADS, wg_min_blocks<D>())
     prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
@@ -632,7 +642,7 @@ int launch_dtype(int dtype, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim: 64, 112 or 128.  Causal
+// dtype: 0 = float32, 1 = bfloat16; head_dim: 64, 112, 128 or 256.  Causal
 // (causal != 0): a query at position p sees keys at positions in
 // (p - window, p]; the caller passes a window of at least q_offset + Sq
 // for none.  Not causal: every query sees all Skv keys; the caller passes
@@ -652,6 +662,9 @@ extern "C" int fa_prefill(int dtype, int head_dim, const void* q,
                              window, causal, scale, s);
   if (head_dim == 128)
     return launch_dtype<128>(dtype, q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
+                             window, causal, scale, s);
+  if (head_dim == 256)
+    return launch_dtype<256>(dtype, q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
                              window, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

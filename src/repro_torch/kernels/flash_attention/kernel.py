@@ -1,6 +1,6 @@
 """Build, bind and launch the flash-attention kernels K1 (decode) and K2
 (prefill, causal or not), written in CUDA C++ for Hopper
-(``csrc/*.cu``), at head_dim 64, 112 or 128.
+(``csrc/*.cu``), at head_dim 64, 112, 128 or 256.
 
 The sources are built at first use by ``repro_torch.kernels.nvcc`` into
 ``_build/`` beside them (never at import).
@@ -30,7 +30,7 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = {"flash_decode": "flash_decode.cu",
            "flash_prefill": "flash_prefill.cu"}
-HEAD_DIMS = (64, 112, 128)
+HEAD_DIMS = (64, 112, 128, 256)
 MAX_REP = 16                     # query heads per KV head (K1)
 MAX_SPLIT = 64                   # KV splits per (row, KV head) (K1)
 DECODE_TILE = 64                 # tokens per K1 tile

@@ -8,7 +8,8 @@ source, of every header it includes by a quoted relative path (followed
 recursively: the Hopper helpers of ``kernels/csrc/sm90.cuh`` are shared by
 two sources) and of the flags, so an edited source or header is rebuilt.
 Every missing library is compiled at once, one ``nvcc`` process per
-source, all in parallel.
+source, all in parallel; the compiler's report (``-Xptxas -v``: each
+kernel's registers and spills) is kept beside the library.
 """
 from __future__ import annotations
 
@@ -22,8 +23,6 @@ from typing import Dict, Iterable, List, Tuple
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-BUILD_LOG: Dict[str, str] = {}   # nvcc/ptxas output of each fresh build
 
 # name -> (source file, library file)
 Jobs = Dict[str, Tuple[Path, Path]]
@@ -79,12 +78,57 @@ def lib_path(source: Path, build_dir: Path) -> Path:
     return build_dir / f"lib{source.stem}-{h.hexdigest()[:16]}.so"
 
 
+def _sass(lib: Path) -> str:
+    return subprocess.run([_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def _count(text: str, opcodes: Iterable[str]) -> Dict[str, int]:
+    return {op: len(re.findall(rf"\b{op}\b", text)) for op in opcodes}
+
+
 def sass_counts(lib: Path, opcodes: Iterable[str]) -> Dict[str, int]:
     """How many instructions of each opcode (``HGMMA``, ``UTMALDG``, ...)
     the machine code of a built library holds (``cuobjdump -sass``)."""
-    out = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)],
-                         capture_output=True, text=True, check=True).stdout
-    return {op: len(re.findall(rf"\b{op}\b", out)) for op in opcodes}
+    return _count(_sass(lib), opcodes)
+
+
+def split_functions(text: str, header: str) -> Dict[str, str]:
+    """The text after each line holding ``header`` followed by a symbol,
+    up to the next such line, keyed by that symbol."""
+    parts = re.split(rf"^.*?{header}\s*(\S+).*$", text, flags=re.M)
+    return {parts[i]: parts[i + 1] for i in range(1, len(parts) - 1, 2)}
+
+
+def sass_counts_by_function(lib: Path, opcodes: Iterable[str]
+                            ) -> Dict[str, Dict[str, int]]:
+    """``sass_counts`` for each kernel of the library apart, keyed by its
+    mangled name (a template instantiation's name holds its arguments,
+    ``...ILi256E...`` for 256)."""
+    return {name: _count(body, opcodes) for name, body in
+            split_functions(_sass(lib), "Function :").items()}
+
+
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """The registers and the spill store and load bytes of each function
+    that ``ptxas -v`` reported in a build log (``build_log``), keyed by
+    its mangled name."""
+    out = {}
+    for name, body in split_functions(log, "Function properties for").items():
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      body)
+        r = re.search(r"Used (\d+) registers", body)
+        if m and r:
+            out[name] = {"registers": int(r.group(1)),
+                         "spill_stores": int(m.group(1)),
+                         "spill_loads": int(m.group(2))}
+    return out
+
+
+def build_log(lib: Path) -> str:
+    """The nvcc / ptxas output of the build that made ``lib``, kept beside
+    it (``compile_all``), so it is there for a library built earlier."""
+    return lib.with_suffix(".log").read_text()
 
 
 def jobs(csrc: Path, build_dir: Path, sources: Dict[str, str]) -> Jobs:
@@ -111,11 +155,11 @@ def compile_all(todo: Jobs) -> None:
     failed = []
     for name, (proc, tmp, path) in procs.items():
         out, _ = proc.communicate()
-        BUILD_LOG[name] = out
         if proc.returncode != 0:
             failed.append(f"{name} (exit {proc.returncode}):\n{out}")
             tmp.unlink(missing_ok=True)
         else:
+            path.with_suffix(".log").write_text(out)
             os.replace(tmp, path)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
