@@ -2862,6 +2862,275 @@ def tessera_family(cfg, params, k) -> None:
     tessera_steps(cfg, params, k, exes)
 
 
+# the "train" phase: qwen3-1.7b, the shipped config whose training state
+# (bf16 parameters and gradients, fp32 master, moments and residual: 20
+# bytes a parameter) fits one card at full width
+TRAIN_ARCH = "qwen3_1_7b"
+TRAIN_PARAMS = 2_031_730_688          # its ModelConfig.param_count()
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 20
+TRAIN_VOCAB = 1024                    # the Markov chain's ids
+TRAIN_LONG_S = 4096                   # train_4k's sequence length
+TRAIN_MIN_FALL = 1.0                  # nats, first 5 vs last 5 losses
+ACCUM_TOL = dict(rtol=5e-4, atol=5e-5)
+RESUME_STEPS, RESUME_EVERY, RESUME_FAIL = 12, 4, 8
+
+
+class Batches:
+    """``TokenBatches``' batches made before the timed run (the Markov
+    sampler is host Python), served by step."""
+
+    def __init__(self, source, steps: int):
+        self.batches = [source.batch_at(i) for i in range(steps)]
+
+    def batch_at(self, step: int):
+        return self.batches[step]
+
+
+def train_full(cfg, T) -> dict:
+    """20 Trainer steps of qwen3-1.7b at full width and depth in bf16 (B 4,
+    S 512, default AdamWConfig with warmup 2 of 20 steps, no compression,
+    no remat) on a Markov chain over TRAIN_VOCAB ids: finite losses, the
+    last five at least TRAIN_MIN_FALL nats below the first five.  Returns
+    the trainer's state (for the train_4k step)."""
+    torch.cuda.reset_peak_memory_stats()
+    trainer = T.Trainer(cfg, T.TrainConfig(steps=TRAIN_STEPS, log_every=1),
+                        T.optim.AdamWConfig(warmup_steps=2,
+                                            total_steps=TRAIN_STEPS),
+                        device=DEV)
+    g = torch.Generator(device=DEV)
+    g.manual_seed(0)
+    t = time.perf_counter()
+    state = trainer.init_state(generator=g)
+    torch.cuda.synchronize()
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}, {TRAIN_PARAMS:,} parameters; state on the "
+        f"card in {time.perf_counter() - t:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    batches = Batches(T.TokenBatches(TRAIN_VOCAB, TRAIN_B, TRAIN_S),
+                      TRAIN_STEPS)
+    state = trainer.run(batches, state=state)
+    losses = [m["loss"] for m in trainer.metrics]
+    ends = [m["t"] for m in trainer.metrics]      # after float(loss): synced
+    walls = [1e3 * (b - a) for a, b in zip([0.0] + ends, ends)]
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"[train] losses {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    log("[train] losses: " + " ".join(f"{v:.3f}" for v in losses))
+    if not last <= first - TRAIN_MIN_FALL:
+        raise AssertionError(f"[train] mean loss of the last 5 steps "
+                             f"{last:.3f} is not {TRAIN_MIN_FALL} nats below "
+                             f"the first 5's {first:.3f}")
+    med = float(np.median(walls[1:]))
+    tokens = TRAIN_B * TRAIN_S
+    mfu = 6 * TRAIN_PARAMS * tokens / (med / 1e3) / \
+        PEAK_FLOPS_S[torch.bfloat16]
+    log("[train] step walls (ms, each after its loss is read): "
+        + " ".join(f"{w:.1f}" for w in walls))
+    log(f"[train] on {card()}: bf16, B {TRAIN_B}, S {TRAIN_S}: median step "
+        f"{med:.1f} ms (steps 2-{TRAIN_STEPS}), {tokens / med * 1e3:,.0f} "
+        f"tokens/s, model-FLOP share {mfu:.3f} of the bf16 peak, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; mean "
+        f"loss {first:.3f} -> {last:.3f}")
+    # one more step in its two parts, each ending in a synchronize
+    split = {}
+    t = time.perf_counter()
+    _, grads = trainer.loss_and_grads(state["params"], batches.batch_at(0))
+    torch.cuda.synchronize()
+    split["forward + backward"] = time.perf_counter() - t
+    t = time.perf_counter()
+    T.optim.apply(trainer.ocfg, grads, state["opt"], state["params"])
+    torch.cuda.synchronize()
+    split["AdamW"] = time.perf_counter() - t
+    del grads
+    log("[train] one step's parts: " + ", ".join(
+        f"{name} {1e3 * v:.1f} ms" for name, v in split.items()))
+    return state
+
+
+def train_long(cfg, T, state) -> None:
+    """Two steps of the cell builder's train step (remat on, its default)
+    at train_4k's sequence length, B 1, from the Trainer's state, each
+    timed (the first meets the new shapes)."""
+    torch.cuda.reset_peak_memory_stats()
+    b = T.TokenBatches(TRAIN_VOCAB, 1, TRAIN_LONG_S, seed=1).batch_at(0)
+    batch = {k_: torch.as_tensor(v, device=DEV) for k_, v in b.items()}
+    step = T.steps.make_train_step(cfg, T.optim.AdamWConfig(
+        warmup_steps=2, total_steps=TRAIN_STEPS))
+    walls = []
+    for _ in range(2):          # the first call meets the new shapes
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, loss = step(state["params"], state["opt"], batch)
+        loss = float(loss)
+        walls.append(time.perf_counter() - t)
+        if not np.isfinite(loss):
+            raise AssertionError(f"[train] train_4k step loss {loss}")
+    log(f"[train] make_train_step at S {TRAIN_LONG_S}, B 1, remat: loss "
+        f"{loss:.3f}, walls " + " / ".join(f"{1e3 * w:.1f}" for w in walls)
+        + f" ms, peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        " GB")
+
+
+def train_fp32_checks(cfg, T) -> None:
+    """qwen3-1.7b at full width, 2 layers, fp32, one batch: the gradients
+    of accum 2 (microbatch gradients summed in fp32) against accum 1 at
+    the reference test's tolerance, and of remat against no remat (the
+    same loss, gradients within 1e-6).  Then one Trainer step each of
+    accum 1 and 2: their parameters' largest difference, and how many
+    elements lie outside that tolerance, are reported."""
+    small = dataclasses.replace(cfg, num_layers=SMALL_DEPTH, dtype="float32")
+    batches = T.TokenBatches(TRAIN_VOCAB, TRAIN_B, TRAIN_S, seed=2)
+    batch = batches.batch_at(0)
+
+    def trainer(**kw):
+        return T.Trainer(small, T.TrainConfig(steps=1, **kw), device=DEV)
+
+    def state(tr):
+        g = torch.Generator(device=DEV)
+        g.manual_seed(0)
+        return tr.init_state(g)
+
+    params = state(trainer())["params"]
+    out = {}
+    for name, kw in (("plain", {}), ("accum", {"accum": 2}),
+                     ("remat", {"remat": True})):
+        out[name] = trainer(**kw).loss_and_grads(params, batch)
+    gerr = {}
+    for name in ("accum", "remat"):
+        gerr[name] = 0.0
+        for a, b in zip(pytree.tree_leaves(out["plain"][1]),
+                        pytree.tree_leaves(out[name][1])):
+            if name == "accum":
+                torch.testing.assert_close(b, a, **ACCUM_TOL)
+            gerr[name] = max(gerr[name], float((a - b).abs().max()))
+    l0, l1 = float(out["plain"][0]), float(out["remat"][0])
+    if l0 != l1 or gerr["remat"] > 1e-6:
+        raise AssertionError(f"[train] remat: loss {l1} vs {l0}, gradients "
+                             f"{gerr['remat']:.3e} apart")
+    del params
+    out.clear()
+    ends = {}
+    for accum in (1, 2):
+        tr = trainer(accum=accum)
+        ends[accum] = tr.run(batches, state=state(tr))["params"]
+    perr, outside, total = 0.0, 0, 0
+    for a, b in zip(pytree.tree_leaves(ends[1]), pytree.tree_leaves(ends[2])):
+        perr = max(perr, float((a - b).abs().max()))
+        outside += int((~torch.isclose(b, a, **ACCUM_TOL)).sum())
+        total += a.numel()
+    ends.clear()
+    log(f"[train] fp32, {SMALL_DEPTH} layers: gradients of accum 2 vs 1 "
+        f"{gerr['accum']:.3e} apart (held at rtol {ACCUM_TOL['rtol']}, atol "
+        f"{ACCUM_TOL['atol']}); remat: loss {l1:.6f} equal, gradients "
+        f"{gerr['remat']:.3e} apart; after one AdamW step, accum 2 vs 1 "
+        f"parameters {perr:.3e} apart, {outside} of {total:,} elements "
+        "outside that tolerance")
+
+
+def train_resume(T) -> None:
+    """qwen3's smoke config on the card, fp32: RESUME_STEPS steps straight
+    against a crash at RESUME_FAIL and a resume from the checkpoint in a
+    fresh Trainer, final parameters within 1e-6; then a bf16 state's
+    checkpoint round trip, bit for bit."""
+    import tempfile
+    smoke = dataclasses.replace(T.configs.get_smoke(TRAIN_ARCH),
+                                dtype="float32")
+    batches = T.TokenBatches(smoke.vocab_size, 2, 16)
+    ocfg = T.optim.AdamWConfig(lr=3e-3, warmup_steps=2,
+                               total_steps=RESUME_STEPS)
+
+    def trainer(d):
+        return T.Trainer(smoke, T.TrainConfig(
+            steps=RESUME_STEPS, ckpt_every=RESUME_EVERY, ckpt_dir=d,
+            log_every=1), ocfg, device=DEV)
+    with tempfile.TemporaryDirectory() as a, \
+            tempfile.TemporaryDirectory() as b, \
+            tempfile.TemporaryDirectory() as c:
+        final = trainer(a).run(batches)
+        try:
+            trainer(b).run(batches, fail_at=RESUME_FAIL)
+            raise AssertionError("[train] no simulated failure")
+        except T.SimulatedFailure:
+            pass
+        resumed = trainer(b).resume(batches)
+        err = 0.0
+        for x, y in zip(pytree.tree_leaves(final["params"]),
+                        pytree.tree_leaves(resumed["params"])):
+            torch.testing.assert_close(y, x, rtol=1e-6, atol=1e-6)
+            err = max(err, float((x - y).abs().max()))
+        bf16 = T.Trainer(T.configs.get_smoke(TRAIN_ARCH),
+                         T.TrainConfig(steps=1), device=DEV)
+        state = bf16.run(batches)
+        state.pop("last_step")
+        mgr = T.CheckpointManager(c)
+        mgr.save(1, state)
+        _, back = mgr.restore(bf16.init_state())
+        for x, y in zip(pytree.tree_leaves(state), pytree.tree_leaves(back)):
+            if x.dtype != y.dtype or y.device != x.device or \
+                    not torch.equal(x, y):
+                raise AssertionError("[train] bf16 checkpoint round trip")
+    log(f"[train] crash at step {RESUME_FAIL} of {RESUME_STEPS} and resume "
+        f"on the card: final parameters {err:.3e} from the straight run; "
+        "a bf16 state's checkpoint round trip bit for bit")
+
+
+def train_launcher() -> None:
+    """``launch.train --arch qwen3_1_7b`` once, in a subprocess, on the
+    card (its default device): Markov data over the full vocabulary."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         TRAIN_ARCH, "--steps", "5", "--batch", str(TRAIN_B), "--seq",
+         str(TRAIN_S)], env=env, capture_output=True, text=True,
+        timeout=600)
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("step")]
+    losses = [float(ln.split("loss")[1].split()[0]) for ln in lines]
+    if out.returncode or not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"[train] launch.train rc {out.returncode}: "
+                             f"{out.stdout[-2000:]} {out.stderr[-4000:]}")
+    log(f"[train] launch.train --arch {TRAIN_ARCH} --steps 5: rc 0 in "
+        f"{time.perf_counter() - t:.1f} s, " + "; ".join(lines))
+
+
+def phase_train(configs, k) -> None:
+    """The port's training path on the card: qwen3-1.7b at full width and
+    depth (train_full, train_long), the fp32 accumulation and remat
+    checks (train_fp32_checks), none of which reaches a kernel op; the
+    crash and resume (train_resume) and ``launch.train`` (train_launcher)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import TokenBatches
+    from repro_torch.launch import steps
+    from repro_torch.train import optim
+    from repro_torch.train.loop import (SimulatedFailure, TrainConfig,
+                                        Trainer)
+    T = types.SimpleNamespace(
+        configs=configs, CheckpointManager=CheckpointManager,
+        TokenBatches=TokenBatches, steps=steps, optim=optim,
+        SimulatedFailure=SimulatedFailure, TrainConfig=TrainConfig,
+        Trainer=Trainer)
+    cfg = configs.get(TRAIN_ARCH)
+    if int(cfg.param_count()) != TRAIN_PARAMS:
+        raise AssertionError(f"{cfg.name}: {cfg.param_count()} parameters")
+    torch.cuda.empty_cache()
+    reset_counts(k)
+    state = train_full(cfg, T)
+    train_long(cfg, T, state)
+    state.clear()
+    torch.cuda.empty_cache()
+    train_fp32_checks(cfg, T)
+    launched = {n: v for n, v in counts(k).items() if v}
+    if launched:
+        raise AssertionError(f"[train] the training path launched {launched}")
+    log("[train] kernel launches in the full-width, train_4k and fp32 "
+        "steps: none")
+    torch.cuda.empty_cache()
+    train_resume(T)
+    torch.cuda.empty_cache()
+    train_launcher()
+
+
 def kernel_share(cfg, walls, rows) -> None:
     """The model check's prefill (4 x 512) and mean decode-step wall
     beside the attention kernels' share of them: launches (one a layer)
@@ -3004,6 +3273,8 @@ def main() -> int:
         cfg = configs.get(name)
         launches.update(phase_encdec_vlm(cfg, k, rows))
         log_phase(cfg.family)
+    phase_train(configs, k)
+    log_phase("train")
 
     for row in rows:
         row["launches"] = launches[row["name"]]

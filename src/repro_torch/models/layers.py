@@ -17,6 +17,12 @@ position), so serving keeps one cache allocation for its lifetime.  A
 sliding-window model's cache is a ring buffer of ``min(max_len,
 window)`` slots: position p lives in slot ``p % T``.
 
+The training forms — ``attention_train`` over ``_sdpa_chunked`` and
+``moe_train`` over ``ragged_dot`` — are the reference's own training
+path in plain PyTorch, differentiated by autograd: the kernels' ops
+define no backward, so training reaches none of them (the reference's
+training forward calls no Pallas kernel either).
+
 Ported: the dense, MoE, ssm (rwkv6), hybrid (zamba2), encdec
 (seamless) and vlm (qwen2-vl, M-RoPE) families.  Not ported yet: logit
 softcap and expert-parallel MoE (``moe_impl="ep"``); ``check_supported``
@@ -25,7 +31,7 @@ raises ``NotImplementedError`` for them.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -223,6 +229,104 @@ def cross_attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return _out_project(out, p["wo"])
 
 
+# --------------------------------------------------------------------- #
+# Attention without a cache: the training (and training encoder) form
+# --------------------------------------------------------------------- #
+def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool, q_offset: Union[int, torch.Tensor],
+                  window: Optional[int], chunk: int) -> torch.Tensor:
+    """Scaled dot-product attention, chunked over the query axis (the
+    reference's ``_sdpa_chunked`` without softcap).
+
+    q: (B, Sq, H, D);  k/v: (B, Skv, Hkv, D).  ``q_offset`` (an int or
+    (B,)) is the absolute position of q[0] relative to k[0].  With a
+    sliding ``window`` and Skv > window + chunk only the last ``window +
+    chunk`` keys are sliced per chunk, keeping FLOPs O(Sq * window).
+    Masked logits are -1e30; QK^T and PV accumulate in fp32 from the
+    inputs' values (the reference's ``preferred_element_type``), the
+    softmax weights rounded to v's dtype first."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    q = q * (1.0 / math.sqrt(D))
+    q_off = torch.as_tensor(q_offset, device=q.device)
+    if q_off.ndim == 0:
+        q_off = q_off.expand(B)
+
+    def attend(qc, kc, vc, qpos, kpos):
+        # qc: (B, C, H, D); kc/vc: (B, Kc, Hkv, D); qpos: (B, C); kpos (Kc,)
+        C = qc.shape[1]
+        qg = qc.reshape(B, C, Hkv, rep, D)
+        logits = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(), kc.float())
+        kp = kpos[None, None, :]
+        qp = qpos[:, :, None]
+        mask = kp >= 0                              # padded window slots
+        if causal:
+            mask = mask & (kp <= qp)
+        if window is not None:
+            mask = mask & (kp > qp - window)
+        logits = torch.where(mask[:, None, None], logits, -1e30)
+        w = torch.softmax(logits, dim=-1)
+        o = torch.einsum("bhrqk,bkhd->bqhrd", w.to(v.dtype).float(),
+                         vc.float())
+        return o.reshape(B, C, H, D).to(v.dtype)
+
+    ar = torch.arange(max(Sq, Skv), device=q.device)
+    if Sq <= chunk:
+        return attend(q, k, v, q_off[:, None] + ar[None, :Sq], ar[:Skv])
+    if Sq % chunk:
+        raise ValueError(f"{Sq} queries do not split into chunks of {chunk}")
+    outs = []
+    for i in range(Sq // chunk):
+        qc = q[:, i * chunk:(i + 1) * chunk]
+        qpos = q_off[:, None] + i * chunk + ar[None, :chunk]
+        if window is not None and Skv > window + chunk:
+            span = window + chunk
+            start = min(max(i * chunk + chunk - span, 0), Skv - span)
+            outs.append(attend(qc, k[:, start:start + span],
+                               v[:, start:start + span], qpos,
+                               start + ar[:span]))
+        else:
+            outs.append(attend(qc, k, v, qpos, ar[:Skv]))
+    return torch.cat(outs, dim=1)
+
+
+def attention_train(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                    rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    cross_kv: Optional[Tuple[torch.Tensor,
+                                             torch.Tensor]] = None,
+                    causal: bool = True, q_chunk: int = 512
+                    ) -> torch.Tensor:
+    """The reference's ``attention`` without a cache: full
+    self-attention over ``x`` (B, S, d) rotated by ``rope`` (causal for a
+    decoder, not for an encoder), or with ``cross_kv`` (the encoder's
+    K/V, (B, Se, Hkv, D)) cross-attention: q with ``bq`` / ``q_norm`` and
+    no RoPE.  Within ``cfg.sliding_window`` either way.  Plain PyTorch
+    (``_sdpa_chunked``), differentiable.  Returns the output projection
+    (B, S, d)."""
+    q = _project(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    if cross_kv is None:
+        k = _project(x, p["wk"])
+        v = _project(x, p["wv"])
+        if "bk" in p:
+            k = k + p["bk"]
+            v = v + p["bv"]
+    else:
+        k, v = cross_kv
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
+        if cross_kv is None:
+            k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+    if cross_kv is None:
+        q = apply_rope(q, rope)
+        k = apply_rope(k, rope)
+    out = _sdpa_chunked(q, k, v, causal=causal, q_offset=0,
+                        window=cfg.sliding_window, chunk=q_chunk)
+    return _out_project(out, p["wo"])
+
+
 class DecodePos(NamedTuple):
     """Per-step decode indices, built once and shared by every layer."""
     rows: torch.Tensor          # (B,) int64: 0 .. B-1
@@ -329,6 +433,28 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     counted with ``scatter_add_`` (``bincount`` on CUDA reads the
     input's max on the host) and K3 finds each tile's expert from them
     on the device, so a decode step stays free of host syncs."""
+    return _moe(p, x, cfg, G.gmm)
+
+
+def ragged_dot(x: torch.Tensor, w: torch.Tensor,
+               group_sizes: torch.Tensor) -> torch.Tensor:
+    """``jax.lax.ragged_dot`` in plain PyTorch, differentiable: rows
+    (M, d) sorted by group, each group's rows times its ``w`` (E, d, f).
+    Reads the group sizes on the host."""
+    parts = torch.split(x, group_sizes.tolist())
+    return torch.cat([xs @ w[e] for e, xs in enumerate(parts)])
+
+
+def moe_train(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``moe`` for training: the expert matmuls are ``ragged_dot``, not
+    K3, so autograd differentiates the whole layer."""
+    return _moe(p, x, cfg, ragged_dot)
+
+
+def _moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
+         grouped: Callable) -> torch.Tensor:
+    """The MoE layer with ``grouped(rows, w, group_sizes)`` as the
+    ragged path's expert matmul."""
     B, S, d = x.shape
     T, k, E = B * S, cfg.experts_per_token, cfg.num_experts
     xt = x.reshape(T, d)
@@ -353,10 +479,10 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     group_sizes = torch.zeros(E, dtype=torch.int32, device=x.device) \
         .scatter_add_(0, flat_expert,
                       torch.ones_like(flat_expert, dtype=torch.int32))
-    g = G.gmm(xs, p["w_gate"], group_sizes)
-    u = G.gmm(xs, p["w_up"], group_sizes)
+    g = grouped(xs, p["w_gate"], group_sizes)
+    u = grouped(xs, p["w_up"], group_sizes)
     h = (F.silu(g.float()) * u.float()).to(xs.dtype)
-    y = G.gmm(h, p["w_down"], group_sizes)                        # (T*k, d)
+    y = grouped(h, p["w_down"], group_sizes)                      # (T*k, d)
     # unsort (inverse permutation) and combine with the gates in fp32
     inv = torch.empty_like(sort_idx).scatter_(
         0, sort_idx, torch.arange(T * k, device=x.device))

@@ -5,6 +5,9 @@ of ``repro/models/model.py``.
 Entry points:
   init_params(cfg, generator=, device=)      parameters on the device
   init_cache(cfg, batch, max_len, device=, enc_len=)    zero cache
+  forward_logits(params, cfg, tokens, patch_embeds=, positions3=,
+                 enc_embeds=, remat=)        full-sequence logits (training)
+  loss_fn(params, cfg, tokens, targets, **kw)           training loss
   prefill(params, cfg, tokens, cache, last_pos=, offset=, patch_embeds=,
           positions3=, enc_embeds=)          fill cache (or one chunk), logits
   iter_prefill_chunks / prefill_chunked      a prefill as fixed-size chunks
@@ -43,6 +46,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.utils._pytree as pytree
+import torch.utils.checkpoint
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch import DeviceLike, default_generator, resolve_device
@@ -326,6 +330,147 @@ def _encoder_forward(params: Params, cfg: ModelConfig,
         x = x + L.mlp(lp["mlp"], L.rms_norm(lp["ln2"], x, cfg.norm_eps),
                       cfg)
     return L.rms_norm(params["enc_norm"], x, cfg.norm_eps)
+
+
+# --------------------------------------------------------------------- #
+# Training forward: the reference's forward_logits / loss_fn in plain
+# PyTorch, differentiated by autograd.  No cache, and no kernel op: the
+# layers' training forms (``attention_train``, ``moe_train``, the ssm
+# blocks' ``train=True`` scans) replace K1-K5, whose ops define no
+# backward, as the reference's training forward replaces its Pallas
+# kernels with ``_sdpa_chunked``, the jnp scans and ``ragged_dot``.
+# --------------------------------------------------------------------- #
+def _maybe_remat(fn: Callable, remat: bool) -> Callable:
+    """``fn`` recomputed in the backward pass (``jax.checkpoint``) when
+    ``remat``."""
+    if not remat:
+        return fn
+    return lambda *a: torch.utils.checkpoint.checkpoint(
+        fn, *a, use_reentrant=False)
+
+
+def _train_block(lp: Params, x: torch.Tensor, cfg: ModelConfig, rope,
+                 q_chunk: int) -> torch.Tensor:
+    """A decoder block (attention + MLP or MoE), and the hybrid's shared
+    block, without a cache."""
+    x = x + L.attention_train(lp["attn"], L.rms_norm(lp["ln1"], x,
+                                                     cfg.norm_eps), cfg,
+                              rope=rope, q_chunk=q_chunk)
+    y_in = L.rms_norm(lp["ln2"], x, cfg.norm_eps)
+    if cfg.family == "moe":
+        return x + L.moe_train(lp["moe"], y_in, cfg)
+    return x + L.mlp(lp["mlp"], y_in, cfg)
+
+
+def _encoder_train(params: Params, cfg: ModelConfig,
+                   enc_embeds: torch.Tensor, remat: bool,
+                   q_chunk: int) -> torch.Tensor:
+    """The bidirectional encoder over frame embeddings (B, Se, d), as
+    ``_encoder_forward`` but differentiable; returns the normed output."""
+    x = enc_embeds.to(cfg.torch_dtype)
+    B, Se, _ = x.shape
+    positions = torch.arange(Se, device=x.device).expand(B, Se)
+    rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+    def body(x, lp):
+        x = x + L.attention_train(lp["attn"], L.rms_norm(
+            lp["ln1"], x, cfg.norm_eps), cfg, rope=rope, causal=False,
+            q_chunk=q_chunk)
+        return x + L.mlp(lp["mlp"], L.rms_norm(lp["ln2"], x, cfg.norm_eps),
+                         cfg)
+    body = _maybe_remat(body, remat)
+    for lp in params["encoder"]:
+        x = body(x, lp)
+    return L.rms_norm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def forward_logits(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                   *, patch_embeds: Optional[torch.Tensor] = None,
+                   positions3: Optional[torch.Tensor] = None,
+                   enc_embeds: Optional[torch.Tensor] = None,
+                   scan_layers: bool = True, remat: bool = False,
+                   q_chunk: int = 512) -> torch.Tensor:
+    """Full-sequence logits (B, S, V) of ``tokens`` (B, S), teacher
+    forced: the training forward.  vlm: ``patch_embeds`` take positions
+    [0, npat) and ``positions3`` (3, B, S) are the M-RoPE ids; encdec:
+    ``enc_embeds`` (B, Se, d) go through the encoder.  ``remat``
+    recomputes each layer (each hybrid super-block, each encoder layer)
+    in the backward pass.  ``scan_layers`` is accepted and has no effect
+    (the layers are a list).  ``q_chunk`` is attention's query chunk
+    (the reference's layers keep their default, 512; the result does not
+    depend on it)."""
+    del scan_layers
+    L.check_supported(cfg)
+    B, S = tokens.shape
+    x = _embed_inputs(params, cfg, tokens, patch_embeds)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    if cfg.mrope and positions3 is not None:
+        rope = L.mrope_tables(positions3, cfg.head_dim, cfg.rope_theta,
+                              cfg.mrope_sections)
+    else:
+        rope = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+
+    if cfg.family in ("dense", "moe", "vlm"):
+        def body(x, lp):
+            return _train_block(lp, x, cfg, rope, q_chunk)
+        groups = params["layers"]
+    elif cfg.family == "ssm":
+        def body(x, lp):
+            h, _ = SM.rwkv6_time_mix(lp["tm"], L.rms_norm(
+                lp["ln1"], x, cfg.norm_eps), cfg, train=True)
+            x = x + h
+            y, _ = SM.rwkv6_channel_mix(lp["tm"], L.rms_norm(
+                lp["ln2"], x, cfg.norm_eps), cfg)
+            return x + y
+        groups = params["layers"]
+    elif cfg.family == "hybrid":
+        # super-block i: the shared attention block, then mamba layers
+        # [i k, (i + 1) k)
+        k = cfg.hybrid_attn_every
+
+        def body(x, group):
+            x = _train_block(params["shared_attn"], x, cfg, rope, q_chunk)
+            for lp in group:
+                h, _ = SM.mamba2(lp["mamba"], L.rms_norm(
+                    lp["ln"], x, cfg.norm_eps), cfg, train=True)
+                x = x + h
+            return x
+        groups = [params["layers"][i:i + k]
+                  for i in range(0, cfg.num_layers, k)]
+    elif cfg.family == "encdec":
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name}: encdec requires enc_embeds")
+        enc_out = _encoder_train(params, cfg, enc_embeds, remat, q_chunk)
+
+        def body(x, lp):
+            x = x + L.attention_train(lp["attn"], L.rms_norm(
+                lp["ln1"], x, cfg.norm_eps), cfg, rope=rope,
+                q_chunk=q_chunk)
+            x = x + L.attention_train(
+                lp["xattn"], L.rms_norm(lp["ln_x"], x, cfg.norm_eps), cfg,
+                cross_kv=L.cross_kv(lp["xattn"], enc_out), causal=False,
+                q_chunk=q_chunk)
+            return x + L.mlp(lp["mlp"], L.rms_norm(lp["ln2"], x,
+                                                   cfg.norm_eps), cfg)
+        groups = params["layers"]
+    else:
+        raise ValueError(cfg.family)
+
+    body = _maybe_remat(body, remat)
+    for group in groups:
+        x = body(x, group)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    return L.unembed(params["embed"], x, cfg)
+
+
+def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            targets: torch.Tensor, **kw) -> torch.Tensor:
+    """Mean next-token cross entropy: logsumexp minus the gold logit, in
+    fp32.  ``kw`` go to :func:`forward_logits`."""
+    logits = forward_logits(params, cfg, tokens, **kw).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
 
 
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

@@ -7,6 +7,11 @@ its decode (S == 1 with a state) is the O(1) recurrence in plain torch
 ops, as in JAX.  RWKV6's time mix runs the WKV recurrence through
 ``kernels.rwkv6.ops`` (K4) at every length, decode included.
 
+With ``train=True`` (no state) both blocks run the reference's own
+training scans in plain PyTorch instead, differentiated by autograd:
+``_ssd_chunk_scan`` and ``_wkv_scan`` (the kernels' ops define no
+backward).
+
 Parameter dicts and state layouts are the JAX ones.  A ``state`` passed
 to a block is a dict of per-layer views into the model's stacked cache
 (``{"ssm": (B,H,N,P) fp32, "conv": (B,K-1,C)}`` for Mamba2,
@@ -78,11 +83,58 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return (out + b.float()).to(x.dtype), xp[:, S:]
 
 
+def _ssd_chunk_scan(xh: torch.Tensor, B_: torch.Tensor, C_: torch.Tensor,
+                    a_log: torch.Tensor, chunk: int,
+                    h0: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD (the reference's ``_ssd_chunk_scan``).  xh: (B, S, H,
+    P) dt-scaled inputs; B_/C_: (B, S, N); a_log: (B, S, H) log decay
+    (negative); h0: (B, H, N, P) incoming state (zeros when None).
+    Returns (y (B, S, H, P) fp32, final state)."""
+    Bb, S, H, P = xh.shape
+    N = B_.shape[-1]
+    if S % chunk:
+        raise ValueError(f"{S} tokens do not split into chunks of {chunk}")
+    nC = S // chunk
+    xh = xh.reshape(Bb, nC, chunk, H, P)
+    Bc = B_.reshape(Bb, nC, chunk, N)
+    Cc = C_.reshape(Bb, nC, chunk, N)
+    cum = torch.cumsum(a_log.reshape(Bb, nC, chunk, H), dim=2)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=xh.device))[None, :, :, None]
+    h = torch.zeros((Bb, H, N, P), dtype=torch.float32, device=xh.device) \
+        if h0 is None else h0.float()
+    ys = []
+    for c in range(nC):
+        xc = xh[:, c].float()
+        bc, cc, cm = Bc[:, c].float(), Cc[:, c].float(), cum[:, c]
+        # intra-chunk: L[t, s] = exp(cum_t - cum_s) for s <= t.  The
+        # reference masks after the exp; masking the exponent (exp(-inf)
+        # = 0) gives the same values and no inf * 0 in the gradient
+        diff = cm[:, :, None, :] - cm[:, None, :, :]            # (B,Q,Q,H)
+        Lm = torch.exp(torch.where(mask, diff, -torch.inf))
+        cb = torch.einsum("bqn,bsn->bqs", cc, bc)
+        y = torch.einsum("bqsh,bshp->bqhp", cb[..., None] * Lm, xc)
+        # this chunk's contribution to the state
+        dec = torch.exp(cm[:, -1, None, :] - cm)                # (B,Q,H)
+        st = torch.einsum("bsh,bsn,bshp->bhnp", dec, bc, xc)
+        # the incoming state's: y_state[t] = C_t . (exp(cum_t) h)
+        y_state = torch.einsum("bqn,bqh,bhnp->bqhp", cc, torch.exp(cm), h)
+        h = torch.exp(cm[:, -1])[:, :, None, None] * h + st
+        ys.append(y + y_state)
+    return torch.stack(ys, dim=1).reshape(Bb, S, H, P), h
+
+
 def mamba2(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-           state: Optional[Dict[str, torch.Tensor]] = None
+           state: Optional[Dict[str, torch.Tensor]] = None,
+           train: bool = False
            ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Mamba2 mixer.  ``state`` = {"ssm": (B,H,N,P) fp32, "conv":
-    (B,K-1,C)}, updated in place; None for a fresh sequence."""
+    (B,K-1,C)}, updated in place; None for a fresh sequence.  ``train``
+    (no state): the scan is ``_ssd_chunk_scan`` over 128-token chunks,
+    zero-padded, as the reference trains."""
+    if train and state is not None:
+        raise ValueError("the training form takes no state")
     B, S, d = x.shape
     di, H, N, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
     proj = x @ p["in_proj"]                            # (B,S,2di+2N+H)
@@ -108,6 +160,13 @@ def mamba2(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
             "bn,bhp->bhnp", Bv[:, 0].float(), xh_dt[:, 0])
         y = torch.einsum("bn,bhnp->bhp", Cv[:, 0].float(), h_new)[:, None]
         h.copy_(h_new)
+    elif train:
+        pad = (-S) % 128
+        y, _ = _ssd_chunk_scan(F.pad(xh_dt, (0, 0, 0, 0, 0, pad)),
+                               F.pad(Bv, (0, 0, 0, pad)),
+                               F.pad(Cv, (0, 0, 0, pad)),
+                               F.pad(a_log, (0, 0, 0, pad)), 128)
+        y = y[:, :S]
     else:
         # the chunked scan from the incoming SSM state (zeros for a fresh
         # sequence); K5 takes the ragged tail itself
@@ -178,11 +237,34 @@ def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
     return torch.cat([last[:, None], x[:, :-1]], dim=1)
 
 
+def _wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 linear attention, one token at a time (the reference's
+    ``_wkv_scan``).  r, k, v: (B, S, H, P); w: (B, S, H, P) decay in
+    (0, 1); u: (H, P) bonus; state: (B, H, P, P) [key x value].
+    y_t = r_t . (S_{t-1} + diag(u) k_t v_t^T);  S_t = diag(w_t) S_{t-1}
+    + k_t v_t^T.  Returns (y (B, S, H, P) fp32, final state)."""
+    s = state
+    ys = []
+    for t in range(r.shape[1]):
+        rt, kt, vt = r[:, t].float(), k[:, t].float(), v[:, t].float()
+        kv = kt[..., :, None] * vt[..., None, :]               # (B,H,P,P)
+        ys.append(torch.einsum("bhp,bhpq->bhq", rt,
+                               s + u[None, :, :, None] * kv))
+        s = w[:, t][..., :, None] * s + kv
+    return torch.stack(ys, dim=1), s
+
+
 def rwkv6_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                   state: Optional[Dict[str, torch.Tensor]] = None
+                   state: Optional[Dict[str, torch.Tensor]] = None,
+                   train: bool = False
                    ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """RWKV6 time mix.  ``state`` = {"tm_x": (B,d), "wkv": (B,H,P,P)
-    fp32}, updated in place; None for a fresh sequence."""
+    fp32}, updated in place; None for a fresh sequence.  ``train`` (no
+    state): the recurrence is ``_wkv_scan``, as the reference trains."""
+    if train and state is not None:
+        raise ValueError("the training form takes no state")
     B, S, d = x.shape
     H, P = cfg.rwkv_heads, cfg.rwkv_head_dim
     last = state["tm_x"] if state is not None else \
@@ -203,7 +285,10 @@ def rwkv6_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     w = torch.exp(-torch.exp(ww)).view(B, S, H, P)    # in (0, 1)
     s = state["wkv"] if state is not None else \
         torch.zeros((B, H, P, P), dtype=torch.float32, device=x.device)
-    y = WKV.wkv(r, k, v, w, p["u"], s)                # s -> final state
+    if train:
+        y, _ = _wkv_scan(r, k, v, w, p["u"], s)
+    else:
+        y = WKV.wkv(r, k, v, w, p["u"], s)            # s -> final state
     # group norm per head (population variance)
     var, mean = torch.var_mean(y, dim=-1, keepdim=True, correction=0)
     yh = (y - mean) * torch.rsqrt(var + 64e-5)

@@ -1,11 +1,39 @@
 """Helpers the port's parity tests share: the reference's kernel graph
 carried into the port's ``KernelGraph``, field-by-field equality of the
-two packages' simulation results, and a vlm prompt's M-RoPE ids."""
+two packages' simulation results, a vlm prompt's M-RoPE ids, and a JAX
+Trainer state carried into the port's."""
 import dataclasses
 
 import numpy as np
+import torch
 
+from repro_torch import convert
 from repro_torch.core.graph import KernelGraph, KernelNode
+from repro_torch.train.optim import AdamWState
+
+
+def port_state(jstate) -> dict:
+    """A JAX Trainer state ({"params", "opt"[, "residual"]}, leaves JAX
+    or numpy arrays) as the port's, on the CPU: stacked layers split
+    into lists, ``AdamWState`` fields carried over (a ``None`` master
+    stays ``None``)."""
+    def tree(t):
+        return convert.params_from_jax(t, device="cpu")
+
+    def np_tree(t):
+        if isinstance(t, dict):
+            return {k: np_tree(v) for k, v in t.items()}
+        return np.asarray(t)
+    opt = jstate["opt"]
+    out = {"params": tree(np_tree(jstate["params"])),
+           "opt": AdamWState(
+               step=torch.from_numpy(np.array(opt.step)),
+               mu=tree(np_tree(opt.mu)), nu=tree(np_tree(opt.nu)),
+               master=None if opt.master is None
+               else tree(np_tree(opt.master)))}
+    if "residual" in jstate:
+        out["residual"] = tree(np_tree(jstate["residual"]))
+    return out
 
 
 def grid_positions3(batch: int, length: int, npat: int, side: int

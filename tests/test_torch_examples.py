@@ -10,12 +10,12 @@ pytest.importorskip("torch")
 ROOT = os.path.join(os.path.dirname(__file__), os.pardir)
 
 
-def _run(script: str) -> str:
+def _run(script: str, *args: str) -> str:
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.abspath(os.path.join(ROOT, "src"))
     out = subprocess.run(
         [sys.executable, os.path.join(ROOT, "examples", script), "--device",
-         "cpu"], env=env, capture_output=True, text=True, timeout=300)
+         "cpu", *args], env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     return out.stdout
 
@@ -87,3 +87,13 @@ def test_serve_deployment_flag(spec_kw, tmp_path, capsys):
     assert (out["shards"] > 0) == (spec_kw.get("kv_chunks", 1) > 1)
     printed = capsys.readouterr().out
     assert f"deployment: pd={bool(spec_kw.get('pd'))}" in printed
+
+
+def test_train_smoke_torch():
+    """12 steps with int8 error feedback, a crash at step 8, a resume
+    from the step-8 checkpoint in a fresh Trainer; the loss falls."""
+    out = _run("train_smoke_torch.py", "--steps", "12")
+    assert "simulated node failure at step 8" in out
+    # the last line: "loss <first> -> <last> across a simulated crash"
+    first, last = map(float, out.strip().splitlines()[-1].split()[1:4:2])
+    assert last < first, out
