@@ -94,6 +94,21 @@ Phases; any failure raises and the script exits non-zero:
               from the carried state, logits and every final state leaf
               held against one whole prefill at the model's phase-6/7
               tolerance, with K4 / K5 (and K2) launched once per chunk;
+  ep          after gpt-oss-20b's "paged" check, with its bf16 weights
+              still loaded, the expert-parallel MoE (``moe_impl="ep"``,
+              ``layers._moe_ep``) on a (1, 1) ("data", "model") mesh
+              over a one-rank NCCL group on an in-memory store
+              (destroyed after): at capacity factor E/k (dropless) the
+              model check's prefill and 8 decode steps (no host sync)
+              held against the ragged path (K3) at MODEL_RTOL with its
+              expert choices replayed, then free-running with the
+              routing flips and the first differing greedy token
+              counted; the serve phase's 8 requests through the engine
+              with ep and with ragged, token agreement reported; at the
+              default factor 1.25 the share of assignments dropped at
+              prefill and decode, the prefill and decode-step walls and
+              the peak memory beside the ragged path's; K3 launches 0 in
+              every ep run, K1 and K2 as in phase 5;
   cluster     after llama3-8b's "paged" checks, with its bf16 weights
               still loaded, the cluster layer (``serving/spec.py`` and
               what it stands on): llama3-8b's decode step traced on the
@@ -2004,6 +2019,264 @@ def phase_paged_recurrent(cfg, params, k, limit) -> None:
 
 
 # --------------------------------------------------------------------- #
+# ep: expert-parallel MoE on a one-device mesh
+# --------------------------------------------------------------------- #
+@contextlib.contextmanager
+def one_device_mesh():
+    """A one-rank NCCL group on an in-memory store (no port opened) and
+    the (1, 1) ("data", "model") mesh on the card, made the ambient mesh;
+    the group is destroyed on exit."""
+    import torch.distributed as dist
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device(DEV, 0))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type=DEV)
+        with mesh_context(mesh):
+            yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def counted_drops(L, out: dict, real: torch.Tensor):
+    """Count in ``out`` ("prefill": more than B tokens a call, else
+    "decode"; "prefill, prompt tokens": those of a prefill's tokens that
+    ``real`` (B*S,) marks, the others being right padding) the
+    assignments ``ep_route`` drops, as a device tensor (no host sync),
+    and those it routes."""
+    ep_route = L.ep_route
+
+    def add(kind, kept):
+        dropped, routed = out.get(kind, (0, 0))
+        out[kind] = (dropped + (~kept).sum(), routed + kept.numel())
+
+    def counted(xt, router, cfg):
+        r = ep_route(xt, router, cfg)
+        if xt.shape[0] > B:
+            add("prefill", r[3])
+            add("prefill, prompt tokens",
+                r[3].view(xt.shape[0], -1)[real])
+        else:
+            add("decode", r[3])
+        return r
+    L.ep_route = counted
+    try:
+        yield
+    finally:
+        L.ep_route = ep_route
+
+
+def model_run(cfg, params, k, toks, last, lens, steps):
+    """One right-padded prefill and DECODE_STEPS decode steps, each step
+    under set_sync_debug_mode("error"); returns (fp32 logits of each,
+    wall ms of each, host clock after a synchronise; host ms each decode
+    step took to queue its work, before the synchronise)."""
+    M, dev = k.M, torch.device(DEV)
+    cache = M.init_cache(cfg, B, MAX_LEN, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = M.prefill(params, cfg, toks, cache, last_pos=last)
+    outs = [logits.float()]
+    torch.cuda.synchronize()
+    wall = [(time.perf_counter() - t) * 1e3]
+    pos = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    enq = []
+    for i in range(DECODE_STEPS):
+        t = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, cache = M.decode_step(params, cfg, steps[:, i:i + 1],
+                                          cache, pos)
+            outs.append(logits.float())
+            pos = pos + 1
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        enq.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t) * 1e3)
+    return outs, wall, enq
+
+
+def device_busy_ms(fn) -> tuple:
+    """The summed device time (ms) of the kernels and copies ``fn()``
+    launches, from ``torch.profiler``'s CUDA activity (one stream, so
+    their sum is the device's busy time, whatever the host's gaps; 0.0
+    when the profiler records no device time), and the three largest
+    (kernel, ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = sorted(((e.self_device_time_total / 1e3, e.key)
+                 for e in prof.key_averages()), reverse=True)
+    return sum(ms for ms, _ in ev), [(name[:60], ms) for ms, name in ev[:3]]
+
+
+def logit_gap(cfg, got, want) -> tuple:
+    """(max over the calls of max|got - want| / max|want| over the vocab,
+    the first (call, row) whose greedy tokens differ, or None)."""
+    worst, first = 0.0, None
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a[:, :cfg.vocab_size], b[:, :cfg.vocab_size]
+        if a.shape != (B, cfg.vocab_size) or not torch.isfinite(a).all():
+            raise AssertionError(f"{cfg.name}: logits {i} bad shape / "
+                                 "non-finite")
+        worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+        rows = (a.argmax(-1) != b.argmax(-1)).nonzero()
+        if first is None and len(rows):
+            first = (i, int(rows[0, 0]))
+    return worst, first
+
+
+def phase_ep(cfg, params, k) -> None:
+    """gpt-oss-20b (bf16, its weights loaded) through the expert-parallel
+    MoE (``moe_impl="ep"``) on a (1, 1) mesh over a one-rank NCCL group.
+    Dropless (capacity factor E/k): the model check's prefill and 8
+    decode steps held against the ragged path (K3) at MODEL_RTOL with the
+    ragged run's expert choices replayed, then free-running with the
+    routing flips and the first differing greedy token counted; the
+    serve phase's 8 requests through the engine beside the ragged
+    engine's tokens.  At the default factor 1.25: the share of
+    assignments dropped at prefill and decode, the walls and the peak
+    memory beside the ragged path's.  Every ep run launches no K3 and
+    K1 / K2 as phase 5; no decode step makes a host sync."""
+    L = k.L
+    t0 = time.perf_counter()
+    E, top = cfg.num_experts, cfg.experts_per_token
+    dropless = dataclasses.replace(cfg, moe_impl="ep",
+                                   moe_capacity_factor=E / top)
+    default = dataclasses.replace(cfg, moe_impl="ep")
+    rng = np.random.default_rng(0)
+    lens = np.asarray([PROMPT, 300, 77, 5])
+    toks = np.zeros((B, PROMPT), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    dev = torch.device(DEV)
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, DECODE_STEPS))
+                             .astype(np.int32)).to(dev)
+    args = (k, torch.from_numpy(toks).to(dev),
+            torch.from_numpy((lens - 1).astype(np.int32)).to(dev), lens,
+            steps)
+    real = torch.from_numpy(np.arange(PROMPT)[None] < lens[:, None]) \
+        .reshape(-1).to(dev)
+    expect = expected_launches(cfg, DECODE_STEPS, 1, 1)
+    expect_ep = dict(expect, gmm=0)
+    rtol = MODEL_RTOL[cfg.torch_dtype]
+    labels = ("ragged (K3)", f"ep, factor {E / top:g}",
+              f"ep, factor {default.moe_capacity_factor:g}")
+
+    def run(c, check):
+        """A model run of config ``c`` from zeroed launch counters, its
+        peak memory and its launches, which must be ``check``."""
+        reset_counts(k)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        outs, wall, enq = model_run(c, params, *args)
+        peak = torch.cuda.max_memory_allocated()
+        if counts(k) != check:
+            raise AssertionError(f"ep phase: {c.moe_impl} launches "
+                                 f"{counts(k)} (expected {check})")
+        return outs, (wall, enq), peak
+
+    with one_device_mesh():
+        run(dropless, expect_ep)             # first calls: cuBLAS, NCCL
+        run(cfg, expect)
+        routes_r, routes_e, drops_free, drops = [], [], {}, {}
+        with routing(L, record=routes_r):
+            ragged, wall_r, peak_r = run(cfg, expect)
+        with routing(L, replay=routes_r):
+            same, wall_8, peak_8 = run(dropless, expect_ep)
+        with routing(L, record=routes_e), \
+                counted_drops(L, drops_free, real):
+            free, _, _ = run(dropless, expect_ep)
+        with counted_drops(L, drops, real):
+            _, wall_d, peak_d = run(default, expect_ep)
+        held, _ = logit_gap(cfg, same, ragged)
+        free_gap, first = logit_gap(cfg, free, ragged)
+        flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1)
+                        .sum()) for a, b in zip(routes_r, routes_e))
+        n_choices = sum(a.shape[0] for a in routes_r)
+        lost = {w: int(d) for w, (d, _) in drops_free.items()}
+        if held > rtol or any(lost.values()):
+            raise AssertionError(f"ep (dropless) vs ragged: rel err {held:.3e} "
+                                 f"(held at {rtol}), dropped {lost}")
+        share = {w: (int(d), n) for w, (d, n) in drops.items()}
+
+        # device time of the prefill and of one decode step: a step is
+        # host-bound, and queued behind a device sleep its ~1,500
+        # launches fill the launch queue, so the host waits on the sleep
+        on_device = {}
+        for name, c in zip(labels, (cfg, dropless, default)):
+            cache = k.M.init_cache(c, B, MAX_LEN, device=dev)
+            pos = torch.from_numpy(lens.astype(np.int32)).to(dev)
+            on_device[name] = (
+                device_busy_ms(lambda: k.M.prefill(params, c, args[1], cache,
+                                                   last_pos=args[2])),
+                device_busy_ms(lambda: k.M.decode_step(
+                    params, c, steps[:, :1], cache, pos)))
+
+        # the serve phase's 8 requests, all at 0: ragged, then ep
+        served = {}
+        for c, check in ((cfg, None), (dropless, 0)):
+            eng, reqs, wall, _, launches, _ = serve_colocated(
+                c, params, k, f"ep phase {c.moe_impl} serve")
+            st = eng.stats
+            want = expected_launches(cfg, st.decode_steps,
+                                     st.prefill_batches, st.prefill_batches)
+            if check is not None:
+                want["gmm"] = check
+            if launches != want:
+                raise AssertionError(f"ep phase {c.moe_impl} serve launches "
+                                     f"{launches} (expected {want})")
+            served[c.moe_impl] = (reqs, engine_numbers(
+                st.summary(), reqs, wall), launches)
+    rr, re_ = served["ragged"][0], served["ep"][0]
+    same_tok = sum(a == b for x, y in zip(rr, re_)
+                   for a, b in zip(x.output, y.output))
+    n_tok = sum(len(x.output) for x in rr)
+    same_req = sum(x.output == y.output for x, y in zip(rr, re_))
+    gb = 2 ** 30
+    log(f"[ep] {cfg.name} {cfg.dtype} on {card()}: (1, 1) mesh over a one-rank "
+        f"NCCL group; dropless (capacity factor {E / top:g}) vs ragged "
+        f"(K3), ragged's expert choices replayed: rel err {held:.3e} (held "
+        f"at {rtol}); free-running: {flips} of {n_choices} (token, layer) "
+        f"expert choices differ, rel err {free_gap:.3e}, first differing "
+        f"greedy token at (call, row) {first} (call 0 the prefill; "
+        "reported, not held)")
+    log(f"[ep] {cfg.name}: launches of an ep run {expect_ep} (K3 0), of "
+        f"the ragged run {expect}; no host sync in an ep decode step")
+    for name, (w, enq), peak in zip(labels, (wall_r, wall_8, wall_d),
+                                    (peak_r, peak_8, peak_d)):
+        log(f"[ep] {cfg.name} {name}: prefill 4 x {PROMPT} {w[0]:.2f} ms, "
+            f"decode step mean {float(np.mean(w[1:])):.2f} ms (min "
+            f"{min(w[1:]):.2f}, max {max(w[1:]):.2f}; host queueing "
+            f"{float(np.mean(enq)):.2f} ms of it), peak memory "
+            f"{peak / gb:.2f} GiB")
+    for name, ((pre, pre_top), (step, step_top)) in on_device.items():
+        log(f"[ep] {cfg.name} {name} device busy time (torch.profiler, "
+            f"kernels summed): prefill 4 x {PROMPT} "
+            + (f"{pre:.2f} ms (largest: "
+               + ", ".join(f"{n} {ms:.2f}" for n, ms in pre_top)
+               + f"), decode step {step:.2f} ms (largest: "
+               + ", ".join(f"{n} {ms:.2f}" for n, ms in step_top) + ")"
+               if pre and step
+               else "not measured (the profiler saw no device time)"))
+    log(f"[ep] {cfg.name} factor 1.25 (prompts {lens.tolist()} right-padded "
+        f"to {PROMPT}): dropped " + ", ".join(
+        f"{w} {d} of {n} assignments ({100 * d / n:.2f}%)"
+        for w, (d, n) in share.items()))
+    for impl, (_, numbers, launches) in served.items():
+        log(f"[ep] {cfg.name} serve {impl}: {numbers}, launches {launches}")
+    log(f"[ep] {cfg.name} serve: ep gives the ragged engine's tokens in "
+        f"{same_tok} of {n_tok} positions, {same_req} of {len(rr)} requests "
+        f"whole; phase {time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------------------- #
 # cluster: the deployment spec's DES and its engines on the card
 # --------------------------------------------------------------------- #
 CLUSTER_ARCH = "llama3_8b"
@@ -3241,6 +3514,10 @@ def main() -> int:
             # the cluster layer, with llama3-8b's weights still loaded
             phase_cluster(cfg, params, k, ref)
             log_phase("cluster")
+        if cfg.family == "moe":
+            # expert-parallel MoE, with the weights still loaded
+            phase_ep(cfg, params, k)
+            log_phase("ep")
         free(params)
 
     served(configs.get("llama3_8b"), [PROMPT, 300, 77, 5])

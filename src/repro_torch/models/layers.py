@@ -23,10 +23,10 @@ path in plain PyTorch, differentiated by autograd: the kernels' ops
 define no backward, so training reaches none of them (the reference's
 training forward calls no Pallas kernel either).
 
-Ported: the dense, MoE, ssm (rwkv6), hybrid (zamba2), encdec
+Ported: the dense, MoE (``ragged``, ``dense_einsum`` and the
+expert-parallel ``ep``), ssm (rwkv6), hybrid (zamba2), encdec
 (seamless) and vlm (qwen2-vl, M-RoPE) families.  Not ported yet: logit
-softcap and expert-parallel MoE (``moe_impl="ep"``); ``check_supported``
-raises ``NotImplementedError`` for them.
+softcap; ``check_supported`` raises ``NotImplementedError`` for it.
 """
 from __future__ import annotations
 
@@ -36,6 +36,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.context import current_mesh
 from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.moe_gmm import ops as G
 from repro_torch.models.config import ModelConfig
@@ -54,11 +56,8 @@ def check_supported(cfg: ModelConfig) -> None:
         # the JAX model groups the layers as (num_layers // k, k) too
         raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not "
                          f"split into groups of {cfg.hybrid_attn_every}")
-    for flag, what in ((cfg.attn_logit_softcap > 0.0, "logit softcap"),
-                       (cfg.family == "moe" and cfg.moe_impl == "ep",
-                        "expert-parallel MoE (needs a device mesh)")):
-        if flag:
-            raise NotImplementedError(f"{cfg.name}: {what} is not ported")
+    if cfg.attn_logit_softcap > 0.0:
+        raise NotImplementedError(f"{cfg.name}: logit softcap is not ported")
 
 
 # --------------------------------------------------------------------- #
@@ -432,7 +431,12 @@ def moe(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     Nothing here reads a device value on the host: the group sizes are
     counted with ``scatter_add_`` (``bincount`` on CUDA reads the
     input's max on the host) and K3 finds each tile's expert from them
-    on the device, so a decode step stays free of host syncs."""
+    on the device, so a decode step stays free of host syncs.
+
+    ``ep``: the capacity-based expert-parallel path (``_moe_ep``), under
+    ``mesh_context(mesh)``; it launches no K3."""
+    if cfg.moe_impl == "ep":
+        return _moe_ep(p, x, cfg)
     return _moe(p, x, cfg, G.gmm)
 
 
@@ -447,7 +451,10 @@ def ragged_dot(x: torch.Tensor, w: torch.Tensor,
 
 def moe_train(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """``moe`` for training: the expert matmuls are ``ragged_dot``, not
-    K3, so autograd differentiates the whole layer."""
+    K3, so autograd differentiates the whole layer (``ep`` is
+    differentiable as it stands)."""
+    if cfg.moe_impl == "ep":
+        return _moe_ep(p, x, cfg)
     return _moe(p, x, cfg, ragged_dot)
 
 
@@ -489,6 +496,117 @@ def _moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
     y = y[inv].reshape(T, k, d)
     out = (y.float() * gates[..., None]).sum(dim=1)
     return out.to(x.dtype).reshape(B, S, d)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum(..., preferred_element_type=float32)`` of a batched
+    product: fp32 products and sums of 16-bit inputs (``out_dtype`` on
+    the card; the CPU's bmm takes no ``out_dtype`` for them, and there
+    the inputs are widened, which gives the same exact products)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def ep_route(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """``_moe_ep``'s routing of local tokens ``xt`` (T, d): ``route``
+    (fp32 router logits, the sorted top-k, a softmax over them); each
+    assignment's slot in its expert (earlier assignments to it,
+    token-major); the capacity C = ceil(T*k/E * moe_capacity_factor)
+    (Python numbers).  Returns (gates (T, k) fp32, experts (T*k,), slots
+    clamped to C - 1 (T*k,), kept (T*k,) bool, C)."""
+    T, k, E = xt.shape[0], cfg.experts_per_token, cfg.num_experts
+    gates, eid = route({"router": router}, xt, cfg)             # (T, k)
+    flat_e = eid.reshape(-1)                                    # (T*k,)
+    onehot = torch.zeros(T * k, E, dtype=torch.int32, device=xt.device) \
+        .scatter_(1, flat_e[:, None], 1)
+    pos = (onehot.cumsum(0) - onehot).gather(1, flat_e[:, None])[:, 0]
+    C = max(int(-(-T * k // E) * cfg.moe_capacity_factor), 1)
+    keep = pos < C
+    return gates, flat_e, pos.clamp(max=C - 1).long(), keep, C
+
+
+def _moe_ep(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Capacity-based expert-parallel MoE under ``local_map``.
+
+    Tokens stay inside their (pod, data) shard:
+
+      local top-k -> slot position by masked cumsum -> scatter into a
+      fixed (E, C, d) dispatch buffer -> batched expert GEMMs with the
+      FFN width sharded over ``model`` -> gather+gate combine -> one
+      all-reduce over ``model`` of the (T_loc, d) output.
+
+    Capacity C = ceil(T_loc*k/E * capacity_factor); overflow tokens are
+    dropped (GShard semantics); with factor >= E/k the path is exactly
+    dropless.  ``local_map`` is ``shard_map``'s counterpart: it hands
+    each rank the local blocks of DTensor arguments and wraps the output
+    as a DTensor; plain tensors (the one-device mesh of serving) pass
+    straight through.  On a mesh of more than one device x must be a
+    DTensor.  The batched products are ``torch.bmm`` with fp32 results,
+    as the reference's einsums (no K3), and nothing reads a device value
+    on the host."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import local_map
+    mesh = current_mesh()
+    if mesh is None:
+        raise RuntimeError("moe_impl='ep' requires mesh_context(mesh)")
+    sizes = SH.mesh_shape(mesh)
+    data_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    model_axis = "model" if "model" in sizes else None
+    if mesh.size() > 1 and not isinstance(x, DTensor):
+        raise ValueError(f"moe_impl='ep' on a mesh of {mesh.size()} devices "
+                         "takes x as a DTensor")
+
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    # shard tokens over the largest data-axis prefix dividing the batch
+    # (long-context decode has batch 1: tokens replicate across data)
+    chosen = ()
+    n_data = 1
+    for a in data_axes:
+        if B % (n_data * sizes[a]) == 0:
+            chosen += (a,)
+            n_data *= sizes[a]
+    # a model axis of one device sums nothing
+    group = mesh.get_group(model_axis) \
+        if model_axis is not None and sizes[model_axis] > 1 else None
+
+    def local_fn(xl, router, wg, wu, wd):
+        Bl, Sl, _ = xl.shape
+        Tl = Bl * Sl
+        dev = xl.device
+        xt = xl.reshape(Tl, d)
+        gates, flat_e, pos_c, keep, C = ep_route(xt, router, cfg)
+        token_idx = torch.arange(Tl * k, device=dev) // k
+        xrep = xt[token_idx]                                    # (Tl*k, d)
+        upd = torch.where(keep[:, None], xrep, torch.zeros_like(xrep))
+        # dropped rows add zeros to slot C-1: accumulate, never overwrite
+        disp = torch.zeros(E, C, d, dtype=xl.dtype, device=dev) \
+            .index_put_((flat_e, pos_c), upd, accumulate=True)
+        g = _bmm_f32(disp, wg)
+        u = _bmm_f32(disp, wu)
+        h = (F.silu(g) * u).to(xl.dtype)
+        y = _bmm_f32(h, wd)                                     # f-partial
+        rows = y[flat_e, pos_c] * keep[:, None]
+        out = (rows.reshape(Tl, k, d) * gates[..., None]).sum(dim=1)
+        if group is not None:
+            from torch.distributed.nn.functional import all_reduce
+            out = all_reduce(out, group=group)
+        return out.to(xl.dtype).reshape(Bl, Sl, d)
+
+    def place(*entries):
+        return SH.placements_for(SH.P(*entries), mesh)
+    dspec = chosen if chosen else None
+    x_pl = place(dspec, None, None)
+    w_in = place(None, None, model_axis)     # (E, d, f/n): FFN width
+    w_out = place(None, model_axis, None)    # (E, f/n, d)
+    # one output: its placements as a list (a tuple would be read as one
+    # placement list per output)
+    return local_map(
+        local_fn, out_placements=list(x_pl),
+        in_placements=(x_pl, place(None, None), w_in, w_in, w_out),
+        device_mesh=mesh,
+    )(x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
 
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,7 @@ from repro.models import model as JM  # noqa: E402
 from repro.serving import engine as JE  # noqa: E402
 from repro.serving.workload import poisson_trace as j_poisson  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.serving import engine as TE  # noqa: E402
 from repro_torch.serving.workload import poisson_trace  # noqa: E402
 
@@ -117,10 +118,18 @@ def test_engine_rejects_bad_input(weights):
         eng.admit_batch([long], 0.0)
     with pytest.raises(ValueError, match="sync_every"):
         TE.ServingEngine(tcfg, tparams, sync_every=0, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="softcap"):
         TE.ServingEngine(dataclasses.replace(TC.get_smoke("gpt_oss_20b"),
-                                             moe_impl="ep"),
+                                             attn_logit_softcap=30.0),
                          tparams, device="cpu")
+    # expert-parallel MoE is served under a mesh (test_torch_moe_ep.py);
+    # without one its first forward raises
+    ep_cfg = dataclasses.replace(TC.get_smoke("gpt_oss_20b"),
+                                 moe_impl="ep", dtype="float32")
+    ep = TE.ServingEngine(ep_cfg, TM.init_params(ep_cfg, device="cpu"),
+                          device="cpu")
+    with pytest.raises(RuntimeError, match="mesh_context"):
+        ep.warmup()
 
 
 def test_warmup_leaves_serving_unchanged(weights, jax_greedy):

@@ -128,16 +128,20 @@ def test_convert_bfloat16_is_bit_exact():
 
 @pytest.mark.parametrize("arch", ["gpt_oss_20b", "mixtral_8x7b"])
 def test_unported_families_raise(arch):
-    """The MoE family is ported except its expert-parallel ``ep`` path,
-    which needs a device mesh.  Every family is ported: the ssm, hybrid,
-    encdec and vlm parity tests are in ``test_torch_ssm.py``,
-    ``test_torch_hybrid.py``, ``test_torch_encdec.py`` and
-    ``test_torch_vlm.py``."""
-    cfg = dataclasses.replace(TC.get_smoke(arch), moe_impl="ep")
-    with pytest.raises(NotImplementedError):
-        TM.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TM.init_cache(cfg, 1, 8, device="cpu")
+    """Every family is ported, the MoE family with its expert-parallel
+    ``ep`` path, which builds parameters and caches as ``ragged`` does
+    and raises at its first forward without a device mesh
+    (``mesh_context``; its parity tests are in ``test_torch_moe_ep.py``).
+    The ssm, hybrid, encdec and vlm parity tests are in
+    ``test_torch_ssm.py``, ``test_torch_hybrid.py``,
+    ``test_torch_encdec.py`` and ``test_torch_vlm.py``."""
+    cfg = dataclasses.replace(TC.get_smoke(arch), moe_impl="ep",
+                              dtype="float32")
+    params = TM.init_params(cfg, device="cpu")
+    cache = TM.init_cache(cfg, 1, 8, device="cpu")
+    with pytest.raises(RuntimeError, match="mesh_context"):
+        TM.prefill(params, cfg, torch.zeros((1, 4), dtype=torch.int32),
+                   cache)
 
 
 @pytest.mark.parametrize("arch", ["seamless_m4t_large_v2", "qwen2_vl_7b"])
@@ -164,9 +168,19 @@ def test_encdec_and_vlm_build_but_are_not_served(arch):
 @pytest.mark.parametrize("option", [dict(family="moe", moe_impl="ep"),
                                     dict(attn_logit_softcap=30.0)])
 def test_unported_dense_options_raise(option):
+    """The softcap is not ported; ``ep`` is, and raises at its forward
+    without a device mesh."""
     cfg = dataclasses.replace(TC.get_smoke("llama3_8b"), **option)
-    with pytest.raises(NotImplementedError):
-        TM.init_cache(cfg, 1, 8, device="cpu")
+    if "moe_impl" not in option:
+        with pytest.raises(NotImplementedError):
+            TM.init_cache(cfg, 1, 8, device="cpu")
+        return
+    cfg = dataclasses.replace(cfg, num_experts=4, experts_per_token=2,
+                              dtype="float32")
+    params = TM.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="mesh_context"):
+        TM.prefill(params, cfg, torch.zeros((1, 4), dtype=torch.int32),
+                   TM.init_cache(cfg, 1, 8, device="cpu"))
 
 
 def test_prefill_longer_than_cache_raises_without_window():
