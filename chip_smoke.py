@@ -109,6 +109,29 @@ Phases; any failure raises and the script exits non-zero:
               prefill and decode, the prefill and decode-step walls and
               the peak memory beside the ragged path's; K3 launches 0 in
               every ep run, K1 and K2 as in phase 5;
+  roofline    after "ep", gpt-oss-20b's weights freed: (a) the dry run
+              (``python -m repro_torch.launch.dryrun``, fake CUDA tensors
+              on a fake process group) of llama3-8b decode_32k on the
+              16 x 16 pod, gpt-oss-20b decode_32k (``ep``) on 2 x 16 x 16
+              and qwen3-1.7b train_4k on 16 x 16, in three subprocesses
+              at once: each record ok, its per-chip memory, FLOPs, bytes
+              and collective bytes, and the report's table (modeled
+              numbers); (d) K2 at B 1, S 32768 (llama3-8b's heads) held
+              against its plain version run in query chunks; (b) on a
+              one-rank NCCL group and the (1, 1) mesh, three reduced
+              cells, each dry-run first: llama3-8b decode_32k at the
+              largest B whose arguments + temp bytes stay under 90% of
+              80 GB, the cache full (pos 32767); llama3-8b prefill_32k
+              at B 1, S 32768; qwen3-1.7b train_4k at B 1, S 4096, remat;
+              each real step (random weights, plain tensors) counted by
+              FlopCounterMode (it must equal the dry run's FLOPs), its
+              peak memory against the dry run's inputs + temp, its
+              wall and device time (torch.profiler's kernel sum) and
+              the roofline bound max(FLOPs / 989e12, bytes / 3.35e12)
+              as a share of each (train: also the model-FLOP share);
+              (c) the decode cell once more on DTensors over the same
+              mesh: logits within MODEL_RTOL of the plain step's, K1
+              launched 32 times;
   cluster     after llama3-8b's "paged" checks, with its bf16 weights
               still loaded, the cluster layer (``serving/spec.py`` and
               what it stands on): llama3-8b's decode step traced on the
@@ -359,7 +382,16 @@ def check(name, got, want, tol) -> float:
     return float(err.max())
 
 
-def bound(nbytes: float, flops: float, dtype) -> dict:
+def kcost():
+    """K1-K5's operations and bytes (``repro_torch/kernels/cost.py``): the
+    formulas the dry run's FLOP counts use."""
+    from repro_torch.kernels import cost
+    return cost
+
+
+def bound(work, dtype) -> dict:
+    """The least time of ``work`` (operations, bytes) on the card."""
+    flops, nbytes = work
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS_S[dtype] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
@@ -514,12 +546,12 @@ def time_attention(g, FK, FR, errs) -> list:
         lengths = [PROMPT] * B
         dec_sets = [decode_inputs(g, dt, lengths, attn) for _ in range(6)]
         n_tok = sum(lengths)
-        dec = bound(es * (2 * B * H * D + 2 * n_tok * Hkv * D) + 4 * B,
-                    4 * n_tok * H * D, dt)
+        dec = bound(kcost().decode(B, H, Hkv, D, n_tok, es), dt)
         pre_sets = [prefill_inputs(g, dt, PROMPT, attn) for _ in range(3)]
         # no window, or one (4096) wider than the prompt: the causal pairs
-        pre = bound(es * (2 * B * PROMPT * H * D + 2 * B * PROMPT * Hkv * D),
-                    4 * D * H * B * PROMPT * (PROMPT + 1) // 2, dt)
+        pre = bound(kcost().prefill(B, PROMPT, PROMPT, H, Hkv, D,
+                                    kcost().prefill_pairs(PROMPT, PROMPT, 0,
+                                                          window), es), dt)
 
         def prefill(q, k, v):
             return FK.flash_prefill(q, k, v, window=window)
@@ -577,9 +609,8 @@ def time_prefill_chunk(g, FK, FR) -> dict:
     lib_err = check("SDPA lower-right vs plain", sdpa_prefill_lower_right(
         *sets[0]).transpose(1, 2), plain(*sets[0]), TOL[dt])
     # each query of the chunk sees the prefix and the chunk's causal part
-    pairs = CHUNK_SQ * CHUNK_OFFSET + CHUNK_SQ * (CHUNK_SQ + 1) // 2
-    bnd = bound(es * (2 * B * CHUNK_SQ * H * D + 2 * B * Skv * Hkv * D),
-                4 * D * H * B * pairs, dt)
+    pairs = kcost().prefill_pairs(CHUNK_SQ, Skv, CHUNK_OFFSET)
+    bnd = bound(kcost().prefill(B, CHUNK_SQ, Skv, H, Hkv, D, pairs, es), dt)
     row = {"name": "flash_prefill_chunk", "route": "cuda",
            "source": FA_SRC + "flash_prefill.cu",
            "replaces": REPLACES["flash_prefill"], "launches": 0,
@@ -674,9 +705,8 @@ def check_and_time_encdec_vlm(g, FK, FR) -> list:
         H, Hkv, D = attn
         if kname == "flash_prefill":
             sets = [prefill_inputs(g, dt, S, attn, Skv) for _ in range(3)]
-            pairs = S * (S + 1) // 2 if causal else S * Skv
-            bnd = bound(es * (2 * B * S * H * D + 2 * B * Skv * Hkv * D),
-                        4 * D * H * B * pairs, dt)
+            pairs = kcost().prefill_pairs(S, Skv, causal=causal)
+            bnd = bound(kcost().prefill(B, S, Skv, H, Hkv, D, pairs, es), dt)
 
             def kern(q, k, v, causal=causal):
                 return FK.flash_prefill(q, k, v, causal=causal)
@@ -687,8 +717,7 @@ def check_and_time_encdec_vlm(g, FK, FR) -> list:
         else:
             sets = [decode_inputs(g, dt, S, attn, Skv) for _ in range(6)]
             n_tok = sum(S)
-            bnd = bound(es * (2 * B * H * D + 2 * n_tok * Hkv * D) + 4 * B,
-                        4 * n_tok * H * D, dt)
+            bnd = bound(kcost().decode(B, H, Hkv, D, n_tok, es), dt)
             kern, plain, lib = FK.flash_decode, FR.decode_attention, \
                 sdpa_decode
         row = {"name": name, "route": "cuda",
@@ -755,7 +784,7 @@ def check_and_time_d256(g, FK, FR) -> list:
     dt, es = torch.bfloat16, 2
     H, Hkv, D = GEMMA_ATTN
     Skv = CHUNK_OFFSET + CHUNK_SQ
-    pairs = CHUNK_SQ * CHUNK_OFFSET + CHUNK_SQ * (CHUNK_SQ + 1) // 2
+    pairs = kcost().prefill_pairs(CHUNK_SQ, Skv, CHUNK_OFFSET)
     n_tok = PROMPT * B
 
     def chunk(q, k, v):
@@ -768,18 +797,18 @@ def check_and_time_d256(g, FK, FR) -> list:
         ("flash_decode_d256", "flash_decode",
          [decode_inputs(g, dt, [PROMPT] * B, GEMMA_ATTN) for _ in range(6)],
          FK.flash_decode, FR.decode_attention, sdpa_decode,
-         bound(es * (2 * B * H * D + 2 * n_tok * Hkv * D) + 4 * B,
-               4 * n_tok * H * D, dt)),
+         bound(kcost().decode(B, H, Hkv, D, n_tok, es), dt)),
         ("flash_prefill_d256", "flash_prefill",
          [prefill_inputs(g, dt, PROMPT, GEMMA_ATTN) for _ in range(3)],
          FK.flash_prefill, FR.prefill_attention, sdpa_prefill,
-         bound(es * (2 * B * PROMPT * H * D + 2 * B * PROMPT * Hkv * D),
-               4 * D * H * B * PROMPT * (PROMPT + 1) // 2, dt)),
+         bound(kcost().prefill(B, PROMPT, PROMPT, H, Hkv, D,
+                               kcost().prefill_pairs(PROMPT, PROMPT), es),
+               dt)),
         ("flash_prefill_chunk_d256", "flash_prefill",
          [prefill_inputs(g, dt, CHUNK_SQ, GEMMA_ATTN, Skv) for _ in range(3)],
          chunk, plain_chunk, sdpa_prefill_lower_right,
-         bound(es * (2 * B * CHUNK_SQ * H * D + 2 * B * Skv * Hkv * D),
-               4 * D * H * B * pairs, dt)))
+         bound(kcost().prefill(B, CHUNK_SQ, Skv, H, Hkv, D, pairs, es),
+               dt)))
     rows = []
     for name, kname, sets, kern, plain, lib, bnd in cases:
         row = {"name": name, "route": "cuda",
@@ -874,7 +903,7 @@ def check_and_time_gmm(g, GK, GR, d=2880, f=2880, E=32) -> list:
             for _ in range(4)]
         M = sum(sizes)
         busy = sum(1 for n in sizes if n)
-        bnd = bound(busy * d * f * 2 + M * (d + f) * 2, 2 * M * d * f, dt)
+        bnd = bound(kcost().gmm(M, d, f, busy, 2), dt)
         lib, lib_name = loop, "per-expert torch.matmul loop"
         if hasattr(torch, "_grouped_mm"):
             try:
@@ -921,9 +950,7 @@ def wkv_bound(S: int, es: int, Bn: int = B) -> dict:
     state in and out, u.  Operations: 4 P per channel and token (the
     read-out and the update), at the fp32 rate."""
     H, P = RWKV_SHAPE
-    tok = Bn * S * H * P
-    return bound(tok * (3 * es + 8) + 2 * Bn * H * P * P * 4 + H * P * 4,
-                 4 * tok * P, torch.float32)
+    return bound(kcost().wkv(Bn, S, H, P, es), torch.float32)
 
 
 def check_and_time_wkv(g, WK, WR) -> list:
@@ -987,9 +1014,7 @@ def ssd_bound(S: int, es: int, Bn: int = B) -> dict:
     cores (3xTF32 keeps fp32 accuracy at a third of that rate, and is
     still under the bytes)."""
     H, P, N = SSD_SHAPE
-    tok = Bn * S * H
-    return bound(tok * P * 8 + Bn * S * N * 2 * es + tok * 4
-                 + 2 * Bn * H * N * P * 4, 4 * tok * N * P, "tf32")
+    return bound(kcost().ssd(Bn, S, H, P, N, es), "tf32")
 
 
 def check_and_time_ssd(g, SK, SR) -> list:
@@ -2277,6 +2302,298 @@ def phase_ep(cfg, params, k) -> None:
 
 
 # --------------------------------------------------------------------- #
+# roofline: the dry run at full width, and three reduced cells on the
+# card against their dry runs and the roofline bound
+# --------------------------------------------------------------------- #
+# (a) full-width dry runs, one subprocess each, on the host's cores
+ROOFLINE_DRYRUNS = (("llama3_8b", "decode_32k", "pod1"),
+                    ("gpt_oss_20b", "decode_32k", "pod2"),
+                    ("qwen3_1_7b", "train_4k", "pod1"))
+ROOFLINE_DIR = os.path.join(ROOT, "experiments", "dryrun_torch_chip")
+HBM_BYTES, HBM_SHARE = 80e9, 0.9      # (b): the decode cell's B fills 90%
+DECODE_ARCH, ROOFLINE_T = "llama3_8b", 32768
+K2_LONG_CHUNK = 1024                  # (d): the plain version's query chunk
+
+
+def start_dryruns() -> list:
+    """(a): ``python -m repro_torch.launch.dryrun`` for each cell of
+    ROOFLINE_DRYRUNS, started at once (fake CUDA tensors, one thread
+    each); the 1-/2-unit extrapolation only for the cheap decode cell."""
+    os.makedirs(ROOFLINE_DIR, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, mesh in ROOFLINE_DRYRUNS:
+        out = os.path.join(ROOFLINE_DIR, f"{arch}.{shape}.{mesh}.json")
+        if os.path.exists(out):
+            os.remove(out)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--out",
+               ROOFLINE_DIR]
+        if shape != "decode_32k":
+            cmd.append("--no-extrapolate")
+        procs.append((arch, shape, mesh, time.perf_counter(),
+                      subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def finish_dryruns(procs) -> None:
+    """(a): each record ``ok``, its per-chip memory, FLOPs, bytes and
+    collective bytes, and the report's table of the single-pod ones."""
+    from repro_torch.roofline import report
+    recs = []
+    for arch, shape, mesh, t0, p in procs:
+        text, _ = p.communicate(timeout=900)
+        rec = json.load(open(os.path.join(ROOFLINE_DIR,
+                                          f"{arch}.{shape}.{mesh}.json")))
+        if p.returncode or not rec.get("ok"):
+            raise AssertionError(f"[roofline] dry run {arch} {shape} {mesh}:"
+                                 f" rc {p.returncode}\n{text[-3000:]}\n"
+                                 f"{rec.get('error', '')[-3000:]}")
+        m, c = rec["memory"], rec["cost"]
+        log(f"[roofline] (a) {arch} {shape} {mesh} ({rec['devices']} chips): "
+            f"ok in {time.perf_counter() - t0:.1f} s (trace "
+            f"{rec['compile_s']} s); per chip: arguments "
+            f"{m['argument_bytes'] / 1e9:.3f} GB, temp "
+            f"{m['temp_bytes'] / 1e9:.3f} GB, outputs "
+            f"{m['output_bytes'] / 1e9:.3f} GB (in place "
+            f"{m['alias_bytes'] / 1e9:.3f}), {c['flops']:.4e} FLOPs, "
+            f"{c['bytes']:.4e} bytes, collectives "
+            f"{rec['collectives']['per_chip_bytes']:.4e} bytes "
+            f"{rec['collectives']['by_op']}")
+        recs.append(rec)
+    rows = [report.analyze_record(r) for r in recs]
+    log("[roofline] (a) " + report.terms_line() + " (modeled, not measured)")
+    for line in report.fmt_table([r for r in rows if r]).splitlines():
+        log(f"[roofline] (a) {line}")
+
+
+def held_long_prefill(k) -> None:
+    """(d): K2 at llama3-8b's shape, B 1, S 32768, causal, against its
+    plain version run in query chunks of K2_LONG_CHUNK (the whole score
+    matrix would take 137 GB), bf16."""
+    H, Hkv, D = LLAMA_ATTN
+    g = torch.Generator(device=DEV)
+    g.manual_seed(7)
+    q = randn(g, 1, ROOFLINE_T, H, D, dtype=torch.bfloat16)
+    kk, vv = (randn(g, 1, ROOFLINE_T, Hkv, D, dtype=torch.bfloat16)
+              for _ in range(2))
+    t = time.perf_counter()
+    got = k.FA.prefill_attention(q, kk, vv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    err = 0.0
+    for s in range(0, ROOFLINE_T, K2_LONG_CHUNK):
+        e = s + K2_LONG_CHUNK
+        want = k.FR.prefill_attention(q[:, s:e], kk[:, :e], vv[:, :e],
+                                      q_offset=s)
+        err = max(err, check(f"K2 S {ROOFLINE_T} rows [{s}, {e})",
+                             got[:, s:e], want, TOL[torch.bfloat16]))
+    log(f"[roofline] (d) K2 bf16 B 1 S {ROOFLINE_T} (H, Hkv, D)="
+        f"{LLAMA_ATTN} causal: held against the plain version in query "
+        f"chunks of {K2_LONG_CHUNK}, max abs err {err:.3e} (atol, rtol "
+        f"{TOL[torch.bfloat16]}); first call {wall * 1e3:.1f} ms")
+
+
+def reduced_cells() -> list:
+    """(b): the three reduced cells (cell, batch, seq); the decode cell's
+    B the largest whose dry-run arguments + temp bytes stay under
+    HBM_SHARE of HBM_BYTES (the per-row bytes from B 1 and B 2, the
+    chosen B traced again)."""
+    from repro_torch.distributed.context import current_mesh
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import steps as S
+    dec = S.get_cell(DECODE_ARCH, "decode_32k")
+    need = {}
+
+    def total(b):
+        if b not in need:
+            tr, tensors, _ = D.compile_cell(dec, current_mesh(), device=DEV,
+                                            batch=b, seq=ROOFLINE_T)
+            mem = D.analyze_compiled(tr, tensors)["memory"]
+            need[b] = mem["argument_bytes"] + mem["temp_bytes"]
+        return need[b]
+    cap = HBM_SHARE * HBM_BYTES
+    b = int((cap - total(1)) // (total(2) - total(1))) + 1
+    while total(b) >= cap:
+        b -= 1
+    log(f"[roofline] (b) {DECODE_ARCH} decode_32k: arguments + temp "
+        f"{total(1) / 1e9:.2f} GB at B 1, {total(2) / 1e9:.2f} GB at B 2, "
+        f"{total(b) / 1e9:.2f} GB at B {b} (under {cap / 1e9:.0f} GB)")
+    return [(dec, b, ROOFLINE_T),
+            (S.get_cell(DECODE_ARCH, "prefill_32k"), 1, ROOFLINE_T),
+            (S.get_cell("qwen3_1_7b", "train_4k"), 1, 4096)]
+
+
+def cell_inputs(cell, batch, seq):
+    """Random parameters (seeded), a zero cache or fresh AdamW state, and
+    the batch of the cell's step on the card; a decode batch reads the
+    whole cache (pos T - 1)."""
+    from repro_torch.models import model as M
+    from repro_torch.train import optim
+    cfg = cell.cfg
+    g = torch.Generator(device=DEV)
+    g.manual_seed(0)
+    params = M.init_params(cfg, generator=g, device=DEV)
+    tok = lambda *s: torch.randint(0, cfg.vocab_size, s, generator=g,  # noqa
+                                   device=DEV, dtype=torch.int32)
+    if cell.step_kind == "train":
+        return params, optim.init(optim.AdamWConfig(), params), {
+            "tokens": tok(batch, seq), "targets": tok(batch, seq)}
+    cache = M.init_cache(cfg, batch, seq, device=DEV)
+    if cell.step_kind == "prefill":
+        return params, cache, {"tokens": tok(batch, seq)}
+    return params, cache, {"tokens": tok(batch, 1), "pos": torch.full(
+        (batch,), seq - 1, dtype=torch.int32, device=DEV)}
+
+
+def roofline_cell(cell, batch, seq) -> tuple:
+    """(b): one reduced cell dry-run on the (1, 1) mesh, then its real step
+    on plain tensors: FLOPs (``FlopCounterMode``) equal to the dry run's,
+    peak memory against its inputs + temp bytes, the step's wall and
+    device time, and the time as a share of the roofline bound (and, for
+    train, the model-FLOP share)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.distributed.context import current_mesh
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import steps as S
+    from repro_torch.roofline import report
+    name = f"{cell.arch} {cell.shape.name} B {batch} S {seq}"
+    tr, tensors, st = D.compile_cell(cell, current_mesh(), device=DEV,
+                                     batch=batch, seq=seq)
+    rec = D.analyze_compiled(tr, tensors)
+    mem, flops, nbytes = rec["memory"], rec["cost"]["flops"], \
+        rec["cost"]["bytes"]
+    # every input is resident, those only overwritten (a prefill's cache)
+    # too, beside the step's own allocations
+    predicted = mem["input_bytes"] + mem["temp_bytes"]
+    args = cell_inputs(cell, batch, seq)
+    step = S.make_step(cell)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counted = float(fc.get_total_flops())
+    if counted != flops:
+        raise AssertionError(f"[roofline] (b) {name}: FlopCounterMode counts "
+                             f"{counted:.6e} FLOPs on the step, the dry run "
+                             f"{flops:.6e}")
+    reps = 2 if cell.step_kind != "decode" else 10
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    busy, top = device_busy_ms(lambda: step(*args))
+    wall = float(np.median(walls))
+    peak_b = PEAK_FLOPS_S[torch.bfloat16]
+    bound_ms = max(flops / peak_b, nbytes / PEAK_BYTES_S) * 1e3
+    gap = "within it" if peak <= predicted else \
+        f"{(peak - predicted) / 1e9:.3f} GB over it"
+    out = {"cell": name, "flops": flops, "bytes": nbytes, "wall_ms": wall,
+           "device_ms": busy, "bound_ms": bound_ms,
+           "bound_by": "operations" if flops / peak_b >=
+           nbytes / PEAK_BYTES_S else "bytes",
+           "share_wall": bound_ms / wall,
+           "share_device": bound_ms / busy if busy else None,
+           "peak_gb": peak / 1e9, "predicted_gb": predicted / 1e9}
+    if cell.step_kind == "train":
+        mf = report.model_flops(cell.arch, cell.shape.name) * batch * seq / (
+            cell.shape.global_batch * cell.shape.seq_len)
+        out["model_flop_share"] = mf / peak_b / (wall / 1e3)
+    log(f"[roofline] (b) {name} on {card()}: dry run (trace "
+        f"{st['compile_s']} s): {flops:.6e} FLOPs (FlopCounterMode on the "
+        f"step: the same), {nbytes:.4e} bytes, arguments "
+        f"{mem['argument_bytes'] / 1e9:.3f} GB read of "
+        f"{mem['input_bytes'] / 1e9:.3f} GB of inputs, + temp "
+        f"{mem['temp_bytes'] / 1e9:.3f} GB; the step: peak "
+        f"{peak / 1e9:.3f} GB ({base / 1e9:.3f} before it), {gap}; wall "
+        f"{wall:.2f} ms (median of {reps}: "
+        + " ".join(f"{w:.1f}" for w in walls) + f"), device {busy:.2f} ms "
+        f"(largest: {', '.join(f'{n} {v:.2f}' for n, v in top)}); bound "
+        f"{bound_ms:.3f} ms ({out['bound_by']}): {out['share_wall']:.4f} of "
+        f"the wall, "
+        + (f"{out['share_device']:.4f}" if busy else "not measured")
+        + " of the device time"
+        + (f"; model-FLOP share {out['model_flop_share']:.4f}"
+           if "model_flop_share" in out else ""))
+    return out, args, step
+
+
+def dtensor_decode(cell, args, k) -> None:
+    """(c): the decode step once more with every parameter, cache and
+    batch leaf a DTensor on the (1, 1) mesh (sharing the plain tensors'
+    storage): logits within MODEL_RTOL of the plain step's, K1 launched
+    once per layer."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.context import current_mesh
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import steps as S
+    mesh = current_mesh()
+    params, cache, batch = args
+    step = S.make_step(cell)
+    want, _ = step(params, cache, batch)
+    (p_sh, c_sh, b_sh), _ = D.build_shardings(cell, args, mesh)
+    before = torch.cuda.memory_allocated()
+    dp = SH.distribute(params, p_sh, src_data_rank=None)
+    dc = SH.distribute(cache, c_sh, src_data_rank=None)
+    db = SH.distribute(batch, b_sh, src_data_rank=None)
+    grown = torch.cuda.memory_allocated() - before
+    reset_counts(k)
+    got, _ = step(dp, dc, db)
+    torch.cuda.synchronize()
+    n = counts(k)
+    got = got.full_tensor()
+    V = cell.cfg.vocab_size
+    gap = float((got[:, :V].float() - want[:, :V].float()).abs().max()
+                / want[:, :V].float().abs().max())
+    n_layers = cell.cfg.num_layers
+    if gap > MODEL_RTOL[torch.bfloat16] or n["flash_decode"] != n_layers \
+            or not torch.isfinite(got).all():
+        raise AssertionError(f"[roofline] (c) DTensor decode: logit gap "
+                             f"{gap:.3e}, launches {n}")
+    log(f"[roofline] (c) {cell.arch} decode B {batch['pos'].shape[0]} on "
+        f"DTensors over the (1, 1) mesh: logits within {gap:.3e} of the "
+        f"plain step's (MODEL_RTOL {MODEL_RTOL[torch.bfloat16]}), K1 "
+        f"launched {n['flash_decode']} times (one per layer), placing the "
+        f"tensors grew memory by {grown / 1e6:.1f} MB")
+
+
+def phase_roofline(k) -> None:
+    """(a) the three full-width dry runs in subprocesses, while (d) holds
+    K2 at S 32768 and (b) dry-runs the reduced cells on the (1, 1) mesh;
+    then (b)'s real steps and (c) the DTensor decode."""
+    t0 = time.perf_counter()
+    procs = start_dryruns()
+    try:
+        held_long_prefill(k)
+        with one_device_mesh():
+            cells = reduced_cells()
+            finish_dryruns(procs)
+            rows = []
+            for cell, batch, seq in cells:
+                row, args, step = roofline_cell(cell, batch, seq)
+                rows.append(row)
+                if cell.step_kind == "decode":
+                    dtensor_decode(cell, args, k)
+                del args, step
+                torch.cuda.empty_cache()
+    finally:
+        for *_, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log("[roofline] " + json.dumps(rows))
+    log(f"[roofline] phase {time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------------------- #
 # cluster: the deployment spec's DES and its engines on the card
 # --------------------------------------------------------------------- #
 CLUSTER_ARCH = "llama3_8b"
@@ -3527,6 +3844,9 @@ def main() -> int:
                                       num_layers=2, dtype="float32",
                                       sliding_window=SMALL_WINDOW),
                   [PROMPT, 300, 130, 5]))
+    # after "ep", with gpt-oss-20b's weights freed
+    phase_roofline(k)
+    log_phase("roofline")
     # the recurrent models first in fp32 at full depth (11.7 and 25.2 GiB
     # of parameters): the tight logit check; zamba2's prompt of 300 ends in
     # a ragged chunk

@@ -30,7 +30,8 @@ reference; the logical axes of those leading list levels ("layers", or
 ``None`` where no pattern matched) are then dropped.  A per-layer
 tensor's spec is therefore the reference's spec of the stacked tensor
 without its leading entry, which both rule tables replicate.
-``tree_shardings`` also gives each leaf's DTensor placements.
+``tree_shardings`` also gives each leaf's DTensor placements, and
+``distribute`` places a tree by them.
 """
 from __future__ import annotations
 
@@ -316,6 +317,24 @@ def tree_shardings(tree_avals: Any, logical_tree: Any, mesh: DeviceMesh,
         s = _spec_for(leaf.shape, axes, sizes, rules)
         out.append(NamedSharding(mesh, s, _placements_for(s, names)))
     return pytree.tree_unflatten(out, spec)
+
+
+def distribute(tree: Any, shardings: Any, *,
+               src_data_rank: Optional[int] = 0) -> Any:
+    """``tree``'s tensors as DTensors placed by ``shardings`` (a
+    ``tree_shardings`` tree): ``distribute_tensor`` with each leaf's
+    placements, the values of rank ``src_data_rank`` (None: each rank's
+    own, no collective)."""
+    from torch.distributed.tensor import distribute_tensor
+    leaves, spec = pytree.tree_flatten(tree)
+    shs = pytree.tree_leaves(shardings,
+                             is_leaf=lambda x: isinstance(x, NamedSharding))
+    if len(shs) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves, {len(shs)} shardings")
+    return pytree.tree_unflatten(
+        [distribute_tensor(t, s.mesh, s.placements,
+                           src_data_rank=src_data_rank)
+         for t, s in zip(leaves, shs)], spec)
 
 
 def param_shardings(params_avals: Any, mesh: DeviceMesh,

@@ -12,10 +12,17 @@ Each op has three registrations:
 
 Ops that replace a state in place declare it in their schema
 (``Tensor(a!)``).
+
+An op that writes nothing in place may also take DTensors: ``sharding``
+lists the placements it takes on one mesh dimension (DTensor's
+``register_sharding``), and DTensor moves any other input to one of
+them.  The in-place ops (K4, K5) take none: a strategy would move their
+state, a copy, and lose the write; their ``ops`` wrappers run each
+rank's shards instead (``distributed.local.local_call``).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -24,11 +31,16 @@ LIB = torch.library.Library(NAMESPACE, "DEF")
 
 
 def define(schema: str, kernel_fn: Callable, plain_fn: Callable,
-           fake_fn: Callable):
-    """Register the op of ``schema`` and return its default overload."""
+           fake_fn: Callable, sharding: Optional[Callable] = None):
+    """Register the op of ``schema`` and return its default overload;
+    with ``sharding``, its DTensor strategies."""
     name = schema.split("(", 1)[0]
     LIB.define(schema)
     LIB.impl(name, kernel_fn, "CompositeExplicitAutograd")
     LIB.impl(name, plain_fn, "CPU")
     torch.library.register_fake(f"{NAMESPACE}::{name}", fake_fn, lib=LIB)
-    return getattr(getattr(torch.ops, NAMESPACE), name).default
+    op = getattr(getattr(torch.ops, NAMESPACE), name).default
+    if sharding is not None:
+        from torch.distributed.tensor.experimental import register_sharding
+        register_sharding(op)(sharding)
+    return op

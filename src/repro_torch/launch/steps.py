@@ -17,6 +17,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 import repro_torch.configs as configs
+from repro_torch.distributed import local as LD
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig, SHAPES, ShapeConfig
 from repro_torch.train import optim
@@ -82,10 +83,15 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig,
     place)."""
     def train_step(params, opt_state, batch):
         kw = _extras(cfg, batch)
-        loss, grads = value_and_grad(
-            lambda p: M.loss_fn(p, cfg, batch["tokens"], batch["targets"],
-                                remat=remat, **kw), params)
-        new_params, new_opt = optim.apply(ocfg, grads, opt_state, params)
+        # DTensor parameters: the backward and the update too mix them
+        # with plain tensors as replicated ones
+        with LD.sharded(params["embed"]):
+            loss, grads = value_and_grad(
+                lambda p: M.loss_fn(p, cfg, batch["tokens"],
+                                    batch["targets"], remat=remat, **kw),
+                params)
+            new_params, new_opt = optim.apply(ocfg, grads, opt_state,
+                                              params)
         return new_params, new_opt, loss
     return train_step
 

@@ -36,6 +36,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import local as LD
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.context import current_mesh
 from repro_torch.kernels.flash_attention import ops as FA
@@ -115,6 +116,8 @@ def apply_rope(x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor]
 # --------------------------------------------------------------------- #
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul."""
+    if LD.is_dtensor(x, w):
+        return LD.contract(x, w, 1, _project)
     B, S, d = x.shape
     return (x.reshape(B * S, d) @ w.reshape(d, -1)).view(
         B, S, w.shape[1], w.shape[2])
@@ -161,37 +164,61 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     k = apply_rope(k, rope)
 
     if kv_cache is None:
-        out = FA.prefill_attention(q, k, v, q_offset=0,
-                                   window=cfg.sliding_window, causal=False)
+        out = _prefill_attn(q, k, v, q_offset=0,
+                            window=cfg.sliding_window, causal=False)
     elif decode_pos is not None:
         _dyn_update(kv_cache["k"], k, decode_pos)
         _dyn_update(kv_cache["v"], v, decode_pos)
-        out = FA.decode_attention(q[:, 0].contiguous(), kv_cache["k"],
-                                  kv_cache["v"], decode_pos.lengths)[:, None]
+        out = _decode_attn(q[:, 0].contiguous(), kv_cache["k"],
+                           kv_cache["v"], decode_pos.lengths)[:, None]
     elif offset is not None:
         if cfg.sliding_window is not None:
             raise ValueError("chunked prefill is undefined for ring-buffer "
                              "SWA caches")
         end = offset + S
         kc, vc = kv_cache["k"], kv_cache["v"]
-        kc[:, offset:end] = k.to(kc.dtype)
-        vc[:, offset:end] = v.to(vc.dtype)
+        _write_slots(kc, k, offset)
+        _write_slots(vc, v, offset)
         # K2 reads dense (B, Skv, Hkv, D): a prefix of B > 1 rows is a
         # strided view, so it is copied
-        out = FA.prefill_attention(q, kc[:, :end].contiguous(),
-                                   vc[:, :end].contiguous(), q_offset=offset,
-                                   window=None)
+        out = _prefill_attn(q, kc[:, :end].contiguous(),
+                            vc[:, :end].contiguous(), q_offset=offset,
+                            window=None)
     else:
         _fill(kv_cache["k"], k)
         _fill(kv_cache["v"], v)
-        out = FA.prefill_attention(q, k.to(kv_cache["k"].dtype),
-                                   v.to(kv_cache["v"].dtype), q_offset=0,
-                                   window=cfg.sliding_window)
+        out = _prefill_attn(q, k.to(kv_cache["k"].dtype),
+                            v.to(kv_cache["v"].dtype), q_offset=0,
+                            window=cfg.sliding_window)
     return _out_project(out, p["wo"])
 
 
+def _prefill_attn(q, k, v, *, q_offset: int, window: Optional[int],
+                  causal: bool = True) -> torch.Tensor:
+    """K2; on DTensors each rank's call on its shards
+    (``distributed.local.attend``)."""
+    if LD.is_dtensor(q, k, v):
+        return LD.attend(lambda a, b, c: FA.prefill_attention(
+            a, b, c, q_offset=q_offset, window=window, causal=causal),
+            q, k, v)
+    return FA.prefill_attention(q, k, v, q_offset=q_offset, window=window,
+                                causal=causal)
+
+
+def _decode_attn(q, k, v, lengths) -> torch.Tensor:
+    """K1; on DTensors each rank's call on its shards, a cache sharded
+    over T gathered first (``distributed.local.attend``)."""
+    if LD.is_dtensor(q, k, v, lengths):
+        return LD.attend(FA.decode_attention, q, k, v, lengths)
+    return FA.decode_attention(q, k, v, lengths)
+
+
 def _out_project(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd") as one matmul."""
+    """einsum("bshk,hkd->bsd") as one matmul.  On DTensors the partial
+    sums over sharded heads are added at once (the residual stream stays
+    whole over ``model``)."""
+    if LD.is_dtensor(out, wo):
+        return LD.reduced(LD.contract(out, wo, 2, _out_project))
     B, S, H, hd = out.shape
     return (out.reshape(B * S, H * hd) @ wo.reshape(H * hd, -1)).view(
         B, S, -1)
@@ -220,11 +247,10 @@ def cross_attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
     if lengths is not None:
-        out = FA.decode_attention(q[:, 0].contiguous(), k, v,
-                                  lengths)[:, None]
+        out = _decode_attn(q[:, 0].contiguous(), k, v, lengths)[:, None]
     else:
-        out = FA.prefill_attention(q, k, v, q_offset=0,
-                                   window=cfg.sliding_window, causal=False)
+        out = _prefill_attn(q, k, v, q_offset=0, window=cfg.sliding_window,
+                            causal=False)
     return _out_project(out, p["wo"])
 
 
@@ -321,8 +347,13 @@ def attention_train(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if cross_kv is None:
         q = apply_rope(q, rope)
         k = apply_rope(k, rope)
-    out = _sdpa_chunked(q, k, v, causal=causal, q_offset=0,
-                        window=cfg.sliding_window, chunk=q_chunk)
+
+    def sdpa(q, k, v):
+        return _sdpa_chunked(q, k, v, causal=causal, q_offset=0,
+                             window=cfg.sliding_window, chunk=q_chunk)
+    # on DTensors each rank attends with its own query heads
+    out = LD.attend(sdpa, q, k, v) if LD.is_dtensor(q, k, v) \
+        else sdpa(q, k, v)
     return _out_project(out, p["wo"])
 
 
@@ -351,8 +382,34 @@ class DecodePos(NamedTuple):
 def _dyn_update(cache: torch.Tensor, val: torch.Tensor,
                 at: DecodePos) -> None:
     """cache (B, T, H, D)[b, slot[b]] <- val (B, 1, H, D)[b, 0], in
-    place: one row write per request at its own slot."""
+    place: one row write per request at its own slot.  A DTensor cache:
+    each rank writes the rows and slots its shard holds."""
+    if LD.is_dtensor(cache):
+        def write(c, v, idx, t0):
+            rel = idx[0] - t0
+            ok = (rel >= 0) & (rel < c.shape[1])
+            rel = rel.clamp(0, c.shape[1] - 1)
+            rows = torch.arange(c.shape[0], device=c.device)
+            c[rows, rel] = torch.where(ok[:, None, None], v[:, 0].to(c.dtype),
+                                       c[rows, rel])
+        LD.write_cache(cache, val, [at.slot], write)
+        return
     cache[at.rows, at.slot] = val[:, 0].to(cache.dtype)
+
+
+def _write_slots(cache: torch.Tensor, val: torch.Tensor, start: int) -> None:
+    """cache (B, T, H, D)[:, start:start + S] <- val (B, S, H, D), in
+    place (a DTensor cache: each rank its own slots)."""
+    if not LD.is_dtensor(cache):
+        cache[:, start:start + val.shape[1]] = val.to(cache.dtype)
+        return
+
+    def write(c, v, idx, t0):
+        lo = max(start, t0)
+        hi = min(start + v.shape[1], t0 + c.shape[1])
+        if hi > lo:
+            c[:, lo - t0:hi - t0] = v[:, lo - start:hi - start].to(c.dtype)
+    LD.write_cache(cache, val, [], write)
 
 
 def _fill(cache: torch.Tensor, val: torch.Tensor) -> None:
@@ -362,7 +419,14 @@ def _fill(cache: torch.Tensor, val: torch.Tensor) -> None:
     ``position % T``, as the JAX ``_fill`` does."""
     T, S = cache.shape[1], val.shape[1]
     if S <= T:
-        cache[:, :S] = val.to(cache.dtype)
+        _write_slots(cache, val, 0)
+        return
+    if LD.is_dtensor(cache):
+        def write(c, v, idx, t0):
+            # slot g holds the token t of [S - T, S) with t % T == g
+            g = torch.arange(t0, t0 + c.shape[1], device=c.device)
+            c[:] = v[:, S - T + (g - (S - T)) % T].to(c.dtype)
+        LD.write_cache(cache, val, [], write)
         return
     slots = torch.arange(S - T, S, device=cache.device) % T
     cache[:, slots] = val[:, S - T:].to(cache.dtype)
@@ -401,12 +465,13 @@ def make_kv_block_pool(cfg: ModelConfig, pool_blocks: int,
 # MLP, embedding
 # --------------------------------------------------------------------- #
 def mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    g = x @ p["w_gate"]
-    u = x @ p["w_up"]
+    g = LD.matmul(x, p["w_gate"])
+    u = LD.matmul(x, p["w_up"])
     # jax.nn.gelu defaults to the tanh approximation
     act = F.gelu(g, approximate="tanh") if cfg.activation == "geglu" \
         else F.silu(g)
-    return (act * u) @ p["w_down"]
+    # on DTensors the partial sums over a sharded d_ff are added at once
+    return LD.reduced(LD.matmul(act * u, p["w_down"]))
 
 
 # --------------------------------------------------------------------- #
@@ -605,11 +670,14 @@ def _moe_ep(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return local_map(
         local_fn, out_placements=list(x_pl),
         in_placements=(x_pl, place(None, None), w_in, w_in, w_out),
-        device_mesh=mesh,
+        device_mesh=mesh, redistribute_inputs=True,
     )(x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
 
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    if LD.is_dtensor(p["tok"], tokens):
+        # a vocab-sharded table: each rank looks up its rows, one sum
+        return LD.embedding(tokens, p["tok"])
     return p["tok"].index_select(0, tokens.reshape(-1)).view(
         *tokens.shape, -1)
 
@@ -617,11 +685,14 @@ def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Project to (padded) vocab logits; padding columns are -1e30, so
     argmax and softmax equal the unpadded computation."""
-    if "unembed" in p:
-        logits = x @ p["unembed"]
-    else:
-        logits = x @ p["tok"].t().to(x.dtype)
+    w = p["unembed"] if "unembed" in p else p["tok"].t().to(x.dtype)
+    logits = LD.matmul(x, w)
     if cfg.padded_vocab != cfg.vocab_size:
+        if LD.is_dtensor(logits):
+            # out of place: a vocab-sharded slice cannot be assigned
+            pad = torch.arange(logits.shape[-1], device=logits.device) \
+                >= cfg.vocab_size
+            return logits.masked_fill(pad, -1e30)
         logits[..., cfg.vocab_size:] = -1e30
     return logits
 

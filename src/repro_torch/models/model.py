@@ -42,6 +42,7 @@ from is written again by its next occupant).
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
@@ -51,6 +52,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch import DeviceLike, default_generator, resolve_device
 from repro_torch.core import marker
+from repro_torch.distributed import local as LD
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SM
 from repro_torch.models.config import ModelConfig
@@ -143,6 +145,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             cache[name] = torch.zeros(shape, dtype=cfg.torch_dtype,
                                       device=dev)
     return cache
+
+
+def _on_dtensors(fn: Callable) -> Callable:
+    """An entry point that also runs with every parameter, cache and
+    batch leaf a DTensor: inside it plain tensors count as replicated and
+    the parameters' mesh is the ambient one (``distributed.local``)."""
+    @functools.wraps(fn)
+    def entry(params, *a, **kw):
+        with LD.sharded(params["embed"]):
+            return fn(params, *a, **kw)
+    return entry
 
 
 def _region(tagged: bool, block: str, layer: int):
@@ -309,6 +322,8 @@ def _embed_inputs(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         if npat > tokens.shape[1]:
             raise ValueError(f"{npat} patch embeddings exceed the prompt's "
                              f"{tokens.shape[1]} positions")
+        if LD.is_dtensor(x):        # out of place: DTensor's autograd
+            return torch.cat([patch_embeds.to(x.dtype), x[:, npat:]], dim=1)
         x[:, :npat] = patch_embeds.to(x.dtype)
     return x
 
@@ -384,6 +399,7 @@ def _encoder_train(params: Params, cfg: ModelConfig,
     return L.rms_norm(params["enc_norm"], x, cfg.norm_eps)
 
 
+@_on_dtensors
 def forward_logits(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    *, patch_embeds: Optional[torch.Tensor] = None,
                    positions3: Optional[torch.Tensor] = None,
@@ -463,16 +479,27 @@ def forward_logits(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return L.unembed(params["embed"], x, cfg)
 
 
+@_on_dtensors
 def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             targets: torch.Tensor, **kw) -> torch.Tensor:
     """Mean next-token cross entropy: logsumexp minus the gold logit, in
     fp32.  ``kw`` go to :func:`forward_logits`."""
     logits = forward_logits(params, cfg, tokens, **kw).float()
+    if LD.is_dtensor(logits):
+        # the same sums over a vocab-sharded row: a max, a sum of
+        # exponentials and the gold logit, each a per-shard partial
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+        hit = torch.arange(logits.shape[-1], device=logits.device) \
+            == targets.long()[..., None]
+        gold = torch.where(hit, logits, 0.0).sum(dim=-1)
+        return torch.mean(logz - gold)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     return torch.mean(logz - gold)
 
 
+@_on_dtensors
 def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             cache: Params, *, last_pos: Optional[torch.Tensor] = None,
             offset: Optional[int] = None,
@@ -535,6 +562,7 @@ def prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return L.unembed(params["embed"], xl, cfg)[:, 0], cache
 
 
+@_on_dtensors
 def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Params, pos: torch.Tensor, *,
                 positions3: Optional[torch.Tensor] = None,

@@ -30,7 +30,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial, Shard
 
+from repro_torch.distributed import local as LD
 from repro_torch.kernels.mamba2_ssd import ops as SSD
 from repro_torch.kernels.rwkv6 import ops as WKV
 from repro_torch.models.config import ModelConfig
@@ -183,7 +185,8 @@ def mamba2(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     var = y32.square().mean(dim=-1, keepdim=True)
     y = (y32 * torch.rsqrt(var + cfg.norm_eps)
          * p["out_norm"].float()).to(x.dtype)
-    return y @ p["out_proj"], state
+    # on DTensors the partial sums over a sharded d_inner added at once
+    return LD.reduced(LD.matmul(y, p["out_proj"])), state
 
 
 def make_mamba2_state(cfg: ModelConfig, batch: int,
@@ -230,6 +233,14 @@ def init_rwkv6(cfg: ModelConfig, g: torch.Generator,
     }
 
 
+def _heads(y: torch.Tensor, H: int, P: int) -> torch.Tensor:
+    """(B, S, H*P) -> (B, S, H, P); a DTensor sharded over heads that do
+    not split evenly is gathered first."""
+    if LD.is_dtensor(y):
+        y = LD.splittable(y, 2, H)
+    return y.view(*y.shape[:2], H, P)
+
+
 def _token_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
     """shifted[t] = x[t-1]; shifted[0] = last (carried across steps)."""
     if x.shape[1] == 1:
@@ -256,6 +267,21 @@ def _wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack(ys, dim=1), s
 
 
+def _wkv_scan_local(r, k, v, w, u, state) -> torch.Tensor:
+    """``_wkv_scan``'s output on DTensors, each rank scanning its shards
+    (its rows or heads; anything else gathered): one token's few ops a
+    step on local tensors, not DTensor's dispatch of each."""
+    mesh = r.device_mesh
+    seq = LD.mapped(r.placements, {0: 0, 2: 2})
+    u_to = LD.mapped(seq, {2: 0})
+    u_grad = tuple(Partial() if isinstance(p, Shard) and p.dim == 0 else q
+                   for p, q in zip(seq, u_to))
+    return LD.local_call(
+        lambda *a: _wkv_scan(*a)[0], mesh,
+        [(r, seq), (k, seq), (v, seq), (w, seq), (u, u_to, u_grad),
+         (state, LD.mapped(seq, {0: 0, 2: 1}))], [(seq, r.shape)])
+
+
 def rwkv6_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                    state: Optional[Dict[str, torch.Tensor]] = None,
                    train: bool = False
@@ -276,16 +302,20 @@ def rwkv6_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     xv = x + (prev - x) * mu[2]
     xw = x + (prev - x) * mu[3]
     xg = x + (prev - x) * mu[4]
-    r = (xr @ p["w_r"]).view(B, S, H, P)
-    k = (xk @ p["w_k"]).view(B, S, H, P)
-    v = (xv @ p["w_v"]).view(B, S, H, P)
-    g = F.silu(xg @ p["w_g"])
+    mm = LD.matmul
+    r = _heads(mm(xr, p["w_r"]), H, P)
+    k = _heads(mm(xk, p["w_k"]), H, P)
+    v = _heads(mm(xv, p["w_v"]), H, P)
+    g = F.silu(mm(xg, p["w_g"]))
     # data-dependent decay (the RWKV6 contribution), fp32
-    ww = p["w0"] + (torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]).float()
-    w = torch.exp(-torch.exp(ww)).view(B, S, H, P)    # in (0, 1)
+    ww = p["w0"] + mm(torch.tanh(mm(xw, p["w_lora_a"])),
+                      p["w_lora_b"]).float()
+    w = _heads(torch.exp(-torch.exp(ww)), H, P)       # in (0, 1)
     s = state["wkv"] if state is not None else \
         torch.zeros((B, H, P, P), dtype=torch.float32, device=x.device)
-    if train:
+    if train and LD.is_dtensor(r):
+        y = _wkv_scan_local(r, k, v, w, p["u"], s)
+    elif train:
         y, _ = _wkv_scan(r, k, v, w, p["u"], s)
     else:
         y = WKV.wkv(r, k, v, w, p["u"], s)            # s -> final state
@@ -293,7 +323,7 @@ def rwkv6_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     var, mean = torch.var_mean(y, dim=-1, keepdim=True, correction=0)
     yh = (y - mean) * torch.rsqrt(var + 64e-5)
     y = yh.reshape(B, S, d) * p["ln_x"].float()
-    out = (y.to(x.dtype) * g) @ p["w_o"]
+    out = LD.reduced(mm(y.to(x.dtype) * g, p["w_o"]))
     if state is not None:
         state["tm_x"].copy_(x[:, -1])
     return out, state
@@ -310,9 +340,10 @@ def rwkv6_channel_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     prev = _token_shift(x, last)
     xk = x + (prev - x) * p["mu_c"][0]
     xr = x + (prev - x) * p["mu_c"][1]
-    k = torch.square(F.relu(xk @ p["ck"]))
-    kv = k @ p["cv"]
-    out = torch.sigmoid(xr @ p["cr"]) * kv
+    mm = LD.matmul
+    k = torch.square(F.relu(mm(xk, p["ck"])))
+    kv = mm(k, p["cv"])
+    out = LD.reduced(torch.sigmoid(mm(xr, p["cr"])) * kv)
     if state is not None:
         state.copy_(x[:, -1])
     return out, state
