@@ -38,6 +38,13 @@
  *    fragment by ldmatrix instead of holding all 16 in registers;
  *  - fp32 (the tight check): one thread per channel (two at D 256), the
  *    tile staged in shared memory, FMA for both products;
+ *  - a logit softcap (gemma-2 style: cap * tanh(logit / cap) on the
+ *    scaled logits, before the mask) is a second instantiation of each
+ *    kernel (template flag CAP), so the kernels without it are the same
+ *    code as before; the cap is applied only to keys the row sees, so a
+ *    masked key stays at -inf (tanh(-inf) cap = -cap would give it a
+ *    weight).  bf16 takes tanh.approx.f32 (one MUFU op, about 2^-11
+ *    relative), fp32 tanhf, for its tight check;
  *  - it reads the cache in the model's layout (B, T, Hkv, D) in place and
  *    stops at lengths[b] = pos[b] + 1: tokens past it are never read, and
  *    the ragged tail tile is zero-filled and masked, so T needs no
@@ -79,6 +86,13 @@ __device__ __forceinline__ void split_range(int len, int nsplit, int sp,
 // that saw no token has m = -inf and weighs nothing).
 __device__ __forceinline__ float weight(float m, float M) {
   return m == -INFINITY ? 0.f : expf(m - M);
+}
+
+// tanh on the MUFU unit (sm_75 and up), about 2^-11 relative error
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -170,13 +184,15 @@ struct MmaSmem {
   static constexpr size_t bytes = ring > epilogue ? ring : epilogue;
 };
 
-template <int D>
+// CAP: the logits are capped, cap_in = scale / cap, cap = the softcap
+template <int D, bool CAP>
 __global__ void __launch_bounds__(THREADS)
     decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
                       const int* __restrict__ lengths, bf16* o,
                       float* part_acc, float* part_ml, int* tickets,
-                      int t_cap, int H, int Hkv, int nsplit, float scale) {
+                      int t_cap, int H, int Hkv, int nsplit, float scale,
+                      float cap_in, float cap) {
   constexpr int DP = MmaSmem<D>::DP;
   constexpr int KS = D / 16;  // k-steps of QK^T
   constexpr int NT = D / 8;   // n-tiles of PV (even at D = 64, 112, 128, 256)
@@ -287,8 +303,14 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const bool ok = tb + j * 8 + e < t_end;
-        s[j][e] = ok ? s[j][e] * scale : -INFINITY;
-        s[j][2 + e] = ok ? s[j][2 + e] * scale : -INFINITY;
+        if constexpr (CAP) {
+          s[j][e] = ok ? cap * tanh_approx(s[j][e] * cap_in) : -INFINITY;
+          s[j][2 + e] =
+              ok ? cap * tanh_approx(s[j][2 + e] * cap_in) : -INFINITY;
+        } else {
+          s[j][e] = ok ? s[j][e] * scale : -INFINITY;
+          s[j][2 + e] = ok ? s[j][2 + e] * scale : -INFINITY;
+        }
         mx0 = fmaxf(mx0, s[j][e]);
         mx1 = fmaxf(mx1, s[j][2 + e]);
       }
@@ -408,14 +430,16 @@ constexpr size_t fma_smem_bytes() {
 // Thread t owns output channels t, t + THREADS, ... below D (one up to
 // D 128, two at D 256); K rows are padded to D + 1 floats for
 // conflict-free reads.
-template <int D>
+// CAP: the pre-scaled logits are capped, tanhf(s / cap) * cap
+template <int D, bool CAP>
 __global__ void __launch_bounds__(THREADS)
     decode_fma_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
                       const float* __restrict__ v,
                       const int* __restrict__ lengths, float* o,
                       float* part_acc, float* part_ml, int* tickets,
-                      int t_cap, int H, int Hkv, int nsplit, float scale) {
+                      int t_cap, int H, int Hkv, int nsplit, float scale,
+                      float cap) {
   constexpr int DP = D + 1;
   extern __shared__ __align__(16) float smem[];
   const int rep = H / Hkv;
@@ -497,6 +521,7 @@ __global__ void __launch_bounds__(THREADS)
         s = 0.f;
 #pragma unroll 8
         for (int d = 0; d < D; ++d) s = fmaf(qh[d], kc[d], s);
+        if constexpr (CAP) s = tanhf(s / cap) * cap;
       }
       ps[h * BK + c] = s;
     }
@@ -566,11 +591,11 @@ __global__ void __launch_bounds__(THREADS)
             Hkv, nsplit);
 }
 
-template <int D>
+template <int D, bool CAP>
 int launch(int dtype, const void* q, const void* k, const void* v,
            const void* lengths, void* o, void* part_acc, void* part_ml,
            void* tickets, int B, int t_cap, int H, int Hkv, int nsplit,
-           float scale, cudaStream_t s) {
+           float scale, float cap, cudaStream_t s) {
   const dim3 grid(Hkv, B, nsplit);
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
@@ -579,24 +604,38 @@ int launch(int dtype, const void* q, const void* k, const void* v,
   cudaError_t err;
   if (dtype == 1) {
     constexpr size_t smem = MmaSmem<D>::bytes;
-    err = mma::opt_in<decode_mma_kernel<D>>(smem);
+    err = mma::opt_in<decode_mma_kernel<D, CAP>>(smem);
     if (err != cudaSuccess) return (int)err;
-    decode_mma_kernel<D><<<grid, THREADS, smem, s>>>(
+    decode_mma_kernel<D, CAP><<<grid, THREADS, smem, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), lens, static_cast<bf16*>(o), pa, pm, tk,
-        t_cap, H, Hkv, nsplit, scale);
+        t_cap, H, Hkv, nsplit, scale, CAP ? scale / cap : 0.f, cap);
   } else if (dtype == 0) {
     constexpr size_t smem = fma_smem_bytes<D>();
-    err = mma::opt_in<decode_fma_kernel<D>>(smem);
+    err = mma::opt_in<decode_fma_kernel<D, CAP>>(smem);
     if (err != cudaSuccess) return (int)err;
-    decode_fma_kernel<D><<<grid, THREADS, smem, s>>>(
+    decode_fma_kernel<D, CAP><<<grid, THREADS, smem, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), lens, static_cast<float*>(o), pa, pm,
-        tk, t_cap, H, Hkv, nsplit, scale);
+        tk, t_cap, H, Hkv, nsplit, scale, cap);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// the instantiation without (softcap 0) or with the cap
+template <int D>
+int launch_cap(int dtype, const void* q, const void* k, const void* v,
+               const void* lengths, void* o, void* part_acc, void* part_ml,
+               void* tickets, int B, int t_cap, int H, int Hkv, int nsplit,
+               float scale, float softcap, cudaStream_t s) {
+  if (softcap > 0.f)
+    return launch<D, true>(dtype, q, k, v, lengths, o, part_acc, part_ml,
+                           tickets, B, t_cap, H, Hkv, nsplit, scale, softcap,
+                           s);
+  return launch<D, false>(dtype, q, k, v, lengths, o, part_acc, part_ml,
+                          tickets, B, t_cap, H, Hkv, nsplit, scale, 0.f, s);
 }
 
 }  // namespace
@@ -604,29 +643,34 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 // dtype: 0 = float32, 1 = bfloat16; head_dim: 64, 112, 128 or 256; rep = H /
 // Hkv <= 16; 1 <= nsplit <= 64.  part_acc: float32 (B, H, nsplit,
 // head_dim) and part_ml: float32 (B, H, nsplit, 2), scratch; tickets:
-// int32 (B, Hkv), zero before the call and zero after it.  Returns the
-// cudaError_t of the launch.
+// int32 (B, Hkv), zero before the call and zero after it.  softcap: 0 for
+// none, else > 0 (the scaled logits become softcap * tanh(logit /
+// softcap)).  Returns the cudaError_t of the launch.
 extern "C" int fa_decode(int dtype, int head_dim, const void* q,
                          const void* k, const void* v, const void* lengths,
                          void* o, void* part_acc, void* part_ml,
                          void* tickets, int B, int t_cap, int H, int Hkv,
-                         int nsplit, float scale, void* stream) {
+                         int nsplit, float scale, float softcap,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (nsplit < 1 || nsplit > MAX_SPLIT || Hkv < 1 || H % Hkv ||
-      H / Hkv > MAX_REP)
+      H / Hkv > MAX_REP || !(softcap >= 0.f))
     return (int)cudaErrorInvalidValue;
   if (head_dim == 64)
-    return launch<64>(dtype, q, k, v, lengths, o, part_acc, part_ml, tickets,
-                      B, t_cap, H, Hkv, nsplit, scale, s);
+    return launch_cap<64>(dtype, q, k, v, lengths, o, part_acc, part_ml,
+                          tickets, B, t_cap, H, Hkv, nsplit, scale, softcap, s);
   if (head_dim == 112)
-    return launch<112>(dtype, q, k, v, lengths, o, part_acc, part_ml,
-                       tickets, B, t_cap, H, Hkv, nsplit, scale, s);
+    return launch_cap<112>(dtype, q, k, v, lengths, o, part_acc, part_ml,
+                           tickets, B, t_cap, H, Hkv, nsplit, scale, softcap,
+                           s);
   if (head_dim == 128)
-    return launch<128>(dtype, q, k, v, lengths, o, part_acc, part_ml,
-                       tickets, B, t_cap, H, Hkv, nsplit, scale, s);
+    return launch_cap<128>(dtype, q, k, v, lengths, o, part_acc, part_ml,
+                           tickets, B, t_cap, H, Hkv, nsplit, scale, softcap,
+                           s);
   if (head_dim == 256)
-    return launch<256>(dtype, q, k, v, lengths, o, part_acc, part_ml,
-                       tickets, B, t_cap, H, Hkv, nsplit, scale, s);
+    return launch_cap<256>(dtype, q, k, v, lengths, o, part_acc, part_ml,
+                           tickets, B, t_cap, H, Hkv, nsplit, scale, softcap,
+                           s);
   return (int)cudaErrorInvalidValue;
 }
 

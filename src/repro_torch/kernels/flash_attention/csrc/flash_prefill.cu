@@ -66,6 +66,16 @@
  * The fp32 variant (the tight check against the plain version) keeps one
  * block per (64-query tile, head, row) in plain FMA from shared memory,
  * with the same causal stop, window start and masking.
+ *
+ * A logit softcap (gemma-2 style: cap * tanh(logit / cap) on the scaled
+ * logits, before the mask) is a second instantiation of each kernel
+ * (template flag CAP), so the kernels without it are the same code as
+ * before.  The capped logit is monotone in the raw one, so the wgmma
+ * kernel still takes the row max on the raw logits and caps it once per
+ * row; each weight then costs one FMUL, one tanh.approx.f32 (about 2^-11
+ * relative), one FFMA and the ex2.  The fp32 kernel caps with tanhf.
+ * Masked keys keep no weight either way (their weight is set to 0, never
+ * computed from a capped -inf, which would be -cap).
  */
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,13 +108,14 @@ __device__ __forceinline__ int kv_begin(int q_offset, int q0, int window) {
   return max(0, q_offset + q0 - window + 1) / BK * BK;
 }
 
-template <int D>
+// CAP: the pre-scaled logits are capped, tanhf(s / cap) * cap
+template <int D, bool CAP>
 __global__ void __launch_bounds__(THREADS)
     prefill_fma_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        int Sq, int Skv, int H, int Hkv, int q_offset,
-                       int window, int causal, float scale) {
+                       int window, int causal, float scale, float cap) {
   constexpr int DP = D + 1;   // padded Q/K row (floats)
   constexpr int NJ = D / 8;   // output columns per thread
   extern __shared__ float smem[];
@@ -174,6 +185,12 @@ __global__ void __launch_bounds__(THREADS)
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+    if constexpr (CAP) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = tanhf(s[i][j] / cap) * cap;
     }
 
 #pragma unroll
@@ -295,6 +312,13 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// tanh on the MUFU unit (sm_75 and up), about 2^-11 relative error
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -309,14 +333,16 @@ constexpr int wg_min_blocks() {
   return D > 128 ? 1 : 2;
 }
 
-// A persistent grid: each block takes a share of the work items.
-template <int D>
+// A persistent grid: each block takes a share of the work items.  CAP:
+// the logits are capped; a raw logit x weighs 2^(tanh(x cap_in) cap_out -
+// the row's capped max), cap_in = scale / cap, cap_out = cap log2(e).
+template <int D, bool CAP>
 __global__ void __launch_bounds__(WG_THREADS, wg_min_blocks<D>())
     prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
                          bf16* __restrict__ o, const Shape sh,
-                         float scale_log2) {
+                         float scale_log2, float cap_in, float cap_out) {
   using G = Wg<D>;
   constexpr int STAGES = G::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -456,17 +482,31 @@ __global__ void __launch_bounds__(WG_THREADS, wg_min_blocks<D>())
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
         const float m_new = fmaxf(m[r], mx[r]);
-        alpha[r] = exp2_approx((m[r] - m_new) * scale_log2);
+        if constexpr (CAP) {
+          // the max capped once per row (m stays raw; while a row has
+          // seen no key, l and its output are 0 and alpha scales zeros)
+          ms[r] = tanh_approx(m_new * cap_in) * cap_out;
+          alpha[r] =
+              exp2_approx(tanh_approx(m[r] * cap_in) * cap_out - ms[r]);
+        } else {
+          alpha[r] = exp2_approx((m[r] - m_new) * scale_log2);
+          ms[r] = m_new * scale_log2;
+        }
         m[r] = m_new;
-        ms[r] = m_new * scale_log2;
         l[r] *= alpha[r];
       }
 #pragma unroll
       for (int k = 0; k < 32; ++k) {
-        const float p =
-            (live >> k) & 1u
-                ? exp2_approx(fmaf(sc[k], scale_log2, -ms[(k >> 1) & 1]))
-                : 0.f;
+        float p;
+        if constexpr (CAP)
+          p = (live >> k) & 1u
+                  ? exp2_approx(fmaf(tanh_approx(sc[k] * cap_in), cap_out,
+                                     -ms[(k >> 1) & 1]))
+                  : 0.f;
+        else
+          p = (live >> k) & 1u
+                  ? exp2_approx(fmaf(sc[k], scale_log2, -ms[(k >> 1) & 1]))
+                  : 0.f;
         sc[k] = p;
         l[(k >> 1) & 1] += p;
       }
@@ -557,21 +597,21 @@ __global__ void __launch_bounds__(WG_THREADS, wg_min_blocks<D>())
   }
 }
 
-template <int D>
+template <int D, bool CAP>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v,
                         void* o, int B, int Sq, int Skv, int H, int Hkv,
                         int q_offset, int window, int causal, float scale,
-                        cudaStream_t stream) {
+                        float cap, cudaStream_t stream) {
   constexpr size_t kSmem = fma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      prefill_fma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmem);
+      prefill_fma_kernel<D, CAP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  prefill_fma_kernel<D><<<grid, THREADS, kSmem, stream>>>(
+  prefill_fma_kernel<D, CAP><<<grid, THREADS, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, Hkv,
-      q_offset, window, causal, scale);
+      q_offset, window, causal, scale, cap);
   return cudaGetLastError();
 }
 
@@ -589,11 +629,11 @@ inline cudaError_t attention_map(CUtensorMap* map, const void* p, int D,
 
 // A persistent grid: as many blocks as fit on the card at once (or one per
 // work item).
-template <int D>
+template <int D, bool CAP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* o, int B, int Sq, int Skv, int H, int Hkv,
                         int q_offset, int window, int causal, float scale,
-                        cudaStream_t stream) {
+                        float cap, cudaStream_t stream) {
   const int rep = H / Hkv;
   Shape sh;
   sh.Sq = Sq, sh.Skv = Skv, sh.H = H, sh.Hkv = Hkv, sh.B = B;
@@ -608,36 +648,50 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   if (err == cudaSuccess) err = attention_map(&tk, k, D, Hkv, Skv, B, 64);
   if (err == cudaSuccess) err = attention_map(&tv, v, D, Hkv, Skv, B, 64);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(prefill_wgmma_kernel<D>,
+    err = cudaFuncSetAttribute(prefill_wgmma_kernel<D, CAP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)Wg<D>::SMEM);
   if (err != cudaSuccess) return err;
   static int per_sm = 0;  // resident blocks of this kernel on an SM
   if (per_sm == 0) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, prefill_wgmma_kernel<D>, WG_THREADS, Wg<D>::SMEM);
+        &per_sm, prefill_wgmma_kernel<D, CAP>, WG_THREADS, Wg<D>::SMEM);
     if (err != cudaSuccess) return err;
     per_sm = per_sm < 1 ? 1 : per_sm;
   }
   const long long most = (long long)per_sm * sm90::sm_count();
   const int grid = (int)(items < most ? items : most);
-  prefill_wgmma_kernel<D><<<grid, WG_THREADS, Wg<D>::SMEM, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), sh, scale * LOG2E);
+  prefill_wgmma_kernel<D, CAP><<<grid, WG_THREADS, Wg<D>::SMEM, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), sh, scale * LOG2E,
+      CAP ? scale / cap : 0.f, cap * LOG2E);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool CAP>
 int launch_dtype(int dtype, const void* q, const void* k, const void* v,
                  void* o, int B, int Sq, int Skv, int H, int Hkv,
                  int q_offset, int window, int causal, float scale,
-                 cudaStream_t s) {
+                 float cap, cudaStream_t s) {
   if (dtype == 0)
-    return launch_fp32<D>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, window,
-                          causal, scale, s);
+    return launch_fp32<D, CAP>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
+                               window, causal, scale, cap, s);
   if (dtype == 1)
-    return launch_bf16<D>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, window,
-                          causal, scale, s);
+    return launch_bf16<D, CAP>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
+                               window, causal, scale, cap, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// the instantiation without (softcap 0) or with the cap
+template <int D>
+int launch_cap(int dtype, const void* q, const void* k, const void* v,
+               void* o, int B, int Sq, int Skv, int H, int Hkv, int q_offset,
+               int window, int causal, float scale, float softcap,
+               cudaStream_t s) {
+  if (softcap > 0.f)
+    return launch_dtype<D, true>(dtype, q, k, v, o, B, Sq, Skv, H, Hkv,
+                                 q_offset, window, causal, scale, softcap, s);
+  return launch_dtype<D, false>(dtype, q, k, v, o, B, Sq, Skv, H, Hkv,
+                                q_offset, window, causal, scale, 0.f, s);
 }
 
 }  // namespace
@@ -647,25 +701,27 @@ int launch_dtype(int dtype, const void* q, const void* k, const void* v,
 // (p - window, p]; the caller passes a window of at least q_offset + Sq
 // for none.  Not causal: every query sees all Skv keys; the caller passes
 // q_offset 0 and a window of at least Sq (it then masks nothing).
-// Returns the cudaError_t of the launch.
+// softcap: 0 for none, else > 0 (the scaled logits become softcap *
+// tanh(logit / softcap)).  Returns the cudaError_t of the launch.
 extern "C" int fa_prefill(int dtype, int head_dim, const void* q,
                           const void* k, const void* v, void* o, int B,
                           int Sq, int Skv, int H, int Hkv, int q_offset,
-                          int window, int causal, float scale,
+                          int window, int causal, float scale, float softcap,
                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!(softcap >= 0.f)) return (int)cudaErrorInvalidValue;
   if (head_dim == 64)
-    return launch_dtype<64>(dtype, q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
-                            window, causal, scale, s);
+    return launch_cap<64>(dtype, q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
+                          window, causal, scale, softcap, s);
   if (head_dim == 112)
-    return launch_dtype<112>(dtype, q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
-                             window, causal, scale, s);
+    return launch_cap<112>(dtype, q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
+                           window, causal, scale, softcap, s);
   if (head_dim == 128)
-    return launch_dtype<128>(dtype, q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
-                             window, causal, scale, s);
+    return launch_cap<128>(dtype, q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
+                           window, causal, scale, softcap, s);
   if (head_dim == 256)
-    return launch_dtype<256>(dtype, q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
-                             window, causal, scale, s);
+    return launch_cap<256>(dtype, q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
+                           window, causal, scale, softcap, s);
   return (int)cudaErrorInvalidValue;
 }
 

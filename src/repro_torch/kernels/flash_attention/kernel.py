@@ -1,6 +1,7 @@
 """Build, bind and launch the flash-attention kernels K1 (decode) and K2
 (prefill, causal or not), written in CUDA C++ for Hopper
-(``csrc/*.cu``), at head_dim 64, 112, 128 or 256.
+(``csrc/*.cu``), at head_dim 64, 112, 128 or 256, each with or without
+a logit softcap (a second instantiation of each kernel).
 
 The sources are built at first use by ``repro_torch.kernels.nvcc`` into
 ``_build/`` beside them (never at import).
@@ -67,13 +68,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "flash_decode":
         lib.fa_decode.argtypes = [I, I, P, P, P, P, P, P, P, P, I, I, I, I,
-                                  I, F, P]
+                                  I, F, F, P]
         lib.fa_decode.restype = I
         lib.fa_decode_error_string.argtypes = [I]
         lib.fa_decode_error_string.restype = ctypes.c_char_p
     else:
         lib.fa_prefill.argtypes = [I, I, P, P, P, P, I, I, I, I, I, I, I, I,
-                                   F, P]
+                                   F, F, P]
         lib.fa_prefill.restype = I
         lib.fa_prefill_error_string.argtypes = [I]
         lib.fa_prefill_error_string.restype = ctypes.c_char_p
@@ -100,6 +101,15 @@ def _check_common(name: str, q: torch.Tensor, *others: torch.Tensor):
     if q.shape[-1] not in HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {q.shape[-1]} is not one of "
                          f"{HEAD_DIMS}")
+
+
+def _check_softcap(name: str, softcap: float) -> float:
+    """The logit softcap: 0 for none, else positive and finite."""
+    softcap = float(softcap)
+    if not (softcap == 0.0 or 0.0 < softcap < math.inf):
+        raise ValueError(f"{name}: softcap {softcap} is neither 0 (none) "
+                         "nor a positive finite number")
+    return softcap
 
 
 def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
@@ -153,9 +163,12 @@ def _tickets(device: torch.device, stream: torch.cuda.Stream,
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor) -> torch.Tensor:
+                 lengths: torch.Tensor, *,
+                 softcap: float = 0.0) -> torch.Tensor:
     """K1.  q: (B, H, D); k/v: one layer of the KV cache, (B, T, Hkv, D);
-    lengths: (B,) int32, the valid KV length of each row.  -> (B, H, D)."""
+    lengths: (B,) int32, the valid KV length of each row; ``softcap`` > 0
+    caps the scaled logits at +-softcap (tanh).  -> (B, H, D)."""
+    softcap = _check_softcap("flash_decode", softcap)
     _check_common("flash_decode", q, k, v)
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("flash_decode: q (B,H,D), k/v (B,T,Hkv,D)")
@@ -186,7 +199,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             v.data_ptr(), lengths.data_ptr(), o.data_ptr(),
                             part_acc.data_ptr(), part_ml.data_ptr(),
                             tickets.data_ptr(), B, T, H, Hkv, nsplit,
-                            1.0 / math.sqrt(D), stream)
+                            1.0 / math.sqrt(D), softcap, stream)
     nvcc.raise_on("flash_decode", lib.fa_decode_error_string, err)
     LAUNCHES["flash_decode"] += 1
     return o
@@ -194,12 +207,16 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   q_offset: int = 0, window: Optional[int] = None,
-                  causal: bool = True) -> torch.Tensor:
+                  causal: bool = True,
+                  softcap: float = 0.0) -> torch.Tensor:
     """K2.  q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D); causal with query
     row i at absolute position ``q_offset + i``, and with a sliding
     ``window`` it sees only keys at positions > its own - window.  Not
     ``causal``, every query sees all Skv keys; no model sets an offset or
-    a window there, and the kernel takes neither.  -> (B, Sq, H, D)."""
+    a window there, and the kernel takes neither.  ``softcap`` > 0 caps
+    the scaled logits at +-softcap (tanh), in every mode.
+    -> (B, Sq, H, D)."""
+    softcap = _check_softcap("flash_prefill", softcap)
     if not causal and (q_offset or window is not None):
         raise ValueError("flash_prefill: a non-causal call takes no "
                          f"q_offset ({q_offset}) and no window ({window})")
@@ -225,7 +242,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = lib.fa_prefill(_DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(),
                              v.data_ptr(), o.data_ptr(), B, Sq, Skv, H, Hkv,
                              int(q_offset), int(win), int(causal),
-                             1.0 / math.sqrt(D), stream)
+                             1.0 / math.sqrt(D), softcap, stream)
     nvcc.raise_on("flash_prefill", lib.fa_prefill_error_string, err)
     LAUNCHES["flash_prefill"] += 1
     return o

@@ -15,22 +15,27 @@ from repro_torch.kernels import cost, library
 from repro_torch.kernels.flash_attention import kernel, ref
 
 
-# ``causal`` has its schema default in each implementation: the
-# dispatcher drops an argument equal to the default before the call
-def _prefill_kernel(q, k, v, q_offset, window, causal=True):
+# ``causal`` and ``softcap`` have their schema defaults in each
+# implementation: the dispatcher drops an argument equal to its default
+# before the call
+def _decode_kernel(q, k, v, lengths, softcap=0.0):
+    return kernel.flash_decode(q, k, v, lengths, softcap=softcap)
+
+
+def _prefill_kernel(q, k, v, q_offset, window, causal=True, softcap=0.0):
     return kernel.flash_prefill(q, k, v, q_offset=q_offset, window=window,
-                                causal=causal)
+                                causal=causal, softcap=softcap)
 
 
 # the plain versions' outputs are made contiguous, as the kernels' are
 # (and as the fake implementation says)
-def _prefill_plain(q, k, v, q_offset, window, causal=True):
+def _prefill_plain(q, k, v, q_offset, window, causal=True, softcap=0.0):
     return ref.prefill_attention(q, k, v, q_offset=q_offset, window=window,
-                                 causal=causal).contiguous()
+                                 causal=causal, softcap=softcap).contiguous()
 
 
-def _decode_plain(q, k, v, lengths):
-    return ref.decode_attention(q, k, v, lengths).contiguous()
+def _decode_plain(q, k, v, lengths, softcap=0.0):
+    return ref.decode_attention(q, k, v, lengths, softcap).contiguous()
 
 
 def _like_q(q, *_):
@@ -44,13 +49,14 @@ def _kv_heads_split(q, k) -> bool:
     return k.shape[2] % k.mesh.size() == 0
 
 
-def _decode_sharding(q, k, v, lengths):
+def _decode_sharding(q, k, v, lengths, *rest):
     """K1 on one mesh dimension: replicated, batch-sharded, or
-    head-sharded where the KV heads follow the query heads."""
-    R, S0 = Replicate(), Shard(0)
-    out = [([R], [R, R, R, R]), ([S0], [S0, S0, S0, S0])]
+    head-sharded where the KV heads follow the query heads (``rest``:
+    the softcap, where the call passed one)."""
+    R, S0, none = Replicate(), Shard(0), [None] * len(rest)
+    out = [([R], [R, R, R, R] + none), ([S0], [S0, S0, S0, S0] + none)]
     if _kv_heads_split(q, k):
-        out.append(([Shard(1)], [Shard(1), Shard(2), Shard(2), R]))
+        out.append(([Shard(1)], [Shard(1), Shard(2), Shard(2), R] + none))
     return out
 
 
@@ -65,23 +71,27 @@ def _prefill_sharding(q, k, v, *rest):
 
 
 FLASH_DECODE = library.define(
-    "flash_decode(Tensor q, Tensor k, Tensor v, Tensor lengths) -> Tensor",
-    kernel.flash_decode, _decode_plain, _like_q, _decode_sharding)
+    "flash_decode(Tensor q, Tensor k, Tensor v, Tensor lengths,"
+    " float softcap=0.0) -> Tensor",
+    _decode_kernel, _decode_plain, _like_q, _decode_sharding)
 FLASH_PREFILL = library.define(
     "flash_prefill(Tensor q, Tensor k, Tensor v, int q_offset, int? window,"
-    " bool causal=True) -> Tensor", _prefill_kernel, _prefill_plain, _like_q,
-    _prefill_sharding)
+    " bool causal=True, float softcap=0.0) -> Tensor", _prefill_kernel,
+    _prefill_plain, _like_q, _prefill_sharding)
 
 
+# the softcap's tanh is not counted, as no exp is (``kernels/cost.py``):
+# the dry run and the roofline read the same work whatever implements it
 @register_flop_formula(torch.ops.repro_torch.flash_decode)
-def _decode_flops(q, k, v, lengths, *, out_shape=None, **kw) -> float:
+def _decode_flops(q, k, v, lengths, softcap=0.0, *, out_shape=None,
+                  **kw) -> float:
     # a trace sees shapes only: every row's whole cache
     B, H, D = q
     return cost.decode(B, H, k[2], D, B * k[1], 2)[0]
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_prefill)
-def _prefill_flops(q, k, v, q_offset, window, causal=True, *,
+def _prefill_flops(q, k, v, q_offset, window, causal=True, softcap=0.0, *,
                    out_shape=None, **kw) -> float:
     B, Sq, H, D = q
     pairs = cost.prefill_pairs(Sq, k[1], q_offset, window, causal)
@@ -91,15 +101,18 @@ def _prefill_flops(q, k, v, q_offset, window, causal=True, *,
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       *, q_offset: int = 0,
                       window: Optional[int] = None,
-                      causal: bool = True) -> torch.Tensor:
+                      causal: bool = True,
+                      softcap: float = 0.0) -> torch.Tensor:
     """GQA prefill: causal, optionally over a sliding ``window``, or not
-    causal (every query sees every key: an encoder, cross-attention).
-    q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D)."""
-    return FLASH_PREFILL(q, k, v, q_offset, window, causal)
+    causal (every query sees every key: an encoder, cross-attention);
+    with a logit ``softcap`` > 0.  q: (B, Sq, H, D); k/v: (B, Skv, Hkv,
+    D)."""
+    return FLASH_PREFILL(q, k, v, q_offset, window, causal, float(softcap))
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
-    """One-token GQA decode.  q: (B, H, D); k/v: (B, T, Hkv, D);
-    lengths: (B,) int32."""
-    return FLASH_DECODE(q, k, v, lengths)
+                     lengths: torch.Tensor,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """One-token GQA decode, with a logit ``softcap`` > 0.  q: (B, H, D);
+    k/v: (B, T, Hkv, D); lengths: (B,) int32."""
+    return FLASH_DECODE(q, k, v, lengths, float(softcap))

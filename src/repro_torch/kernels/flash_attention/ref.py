@@ -4,7 +4,9 @@ layouts.
 
 * GQA: query head ``h`` reads KV head ``h // rep`` (``rep = H // Hkv``).
 * q is scaled by ``1/sqrt(D)`` in its own dtype before the product.
-* logits and softmax are fp32; masked logits are ``-1e30``.
+* logits and softmax are fp32; with a ``softcap`` > 0 the scaled
+  logits become ``tanh(logits / softcap) * softcap`` before the mask;
+  masked logits are ``-1e30``.
 * the softmax weights are cast to the value dtype for the PV product,
   which accumulates in fp32; the output is in the value dtype.
 
@@ -21,10 +23,18 @@ import torch
 NEG_INF = -1e30
 
 
+def _capped(logits: torch.Tensor, softcap: float) -> torch.Tensor:
+    """The logit softcap, ``tanh(logits / softcap) * softcap`` (none at
+    0), as the reference's ``_sdpa_chunked`` applies it."""
+    return torch.tanh(logits / softcap) * softcap if softcap > 0.0 \
+        else logits
+
+
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       *, q_offset: int = 0,
                       window: Optional[int] = None,
-                      causal: bool = True) -> torch.Tensor:
+                      causal: bool = True,
+                      softcap: float = 0.0) -> torch.Tensor:
     """GQA attention.  q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D).
 
     Causal: query row ``i`` sits at absolute position ``q_offset + i``
@@ -37,7 +47,8 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Skv, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
     qg = (q * (1.0 / math.sqrt(D))).reshape(B, Sq, Hkv, rep, D)
-    logits = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(), k.float())
+    logits = _capped(torch.einsum("bqhrd,bkhd->bhrqk", qg.float(),
+                                  k.float()), softcap)
     qpos = q_offset + torch.arange(Sq, device=q.device)
     kpos = torch.arange(Skv, device=q.device)
     mask = kpos[None, :] <= qpos[:, None] if causal \
@@ -51,7 +62,8 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor,
+                     softcap: float = 0.0) -> torch.Tensor:
     """One-token GQA attention over a KV cache.  q: (B, H, D); k/v: the
     cache of one layer, (B, T, Hkv, D); lengths: (B,) valid KV length
     per row (``pos + 1``).  Returns (B, H, D)."""
@@ -59,7 +71,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     T, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
     qg = (q * (1.0 / math.sqrt(D))).reshape(B, Hkv, rep, D)
-    logits = torch.einsum("bhrd,bkhd->bhrk", qg.float(), k.float())
+    logits = _capped(torch.einsum("bhrd,bkhd->bhrk", qg.float(), k.float()),
+                     softcap)
     valid = torch.arange(T, device=q.device)[None, :] \
         < lengths.to(q.device)[:, None]                      # (B, T)
     logits = logits.masked_fill(~valid[:, None, None, :], NEG_INF)

@@ -25,8 +25,9 @@ training forward calls no Pallas kernel either).
 
 Ported: the dense, MoE (``ragged``, ``dense_einsum`` and the
 expert-parallel ``ep``), ssm (rwkv6), hybrid (zamba2), encdec
-(seamless) and vlm (qwen2-vl, M-RoPE) families.  Not ported yet: logit
-softcap; ``check_supported`` raises ``NotImplementedError`` for it.
+(seamless) and vlm (qwen2-vl, M-RoPE) families, and the logit softcap
+(``attn_logit_softcap``: ``tanh(logits / cap) * cap`` on the scaled
+logits before the mask, in K1, K2 and the training form alike).
 """
 from __future__ import annotations
 
@@ -57,8 +58,9 @@ def check_supported(cfg: ModelConfig) -> None:
         # the JAX model groups the layers as (num_layers // k, k) too
         raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not "
                          f"split into groups of {cfg.hybrid_attn_every}")
-    if cfg.attn_logit_softcap > 0.0:
-        raise NotImplementedError(f"{cfg.name}: logit softcap is not ported")
+    if cfg.attn_logit_softcap < 0.0:
+        raise ValueError(f"{cfg.name}: logit softcap "
+                         f"{cfg.attn_logit_softcap} < 0")
 
 
 # --------------------------------------------------------------------- #
@@ -163,14 +165,17 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q = apply_rope(q, rope)
     k = apply_rope(k, rope)
 
+    cap = cfg.attn_logit_softcap
     if kv_cache is None:
         out = _prefill_attn(q, k, v, q_offset=0,
-                            window=cfg.sliding_window, causal=False)
+                            window=cfg.sliding_window, causal=False,
+                            softcap=cap)
     elif decode_pos is not None:
         _dyn_update(kv_cache["k"], k, decode_pos)
         _dyn_update(kv_cache["v"], v, decode_pos)
         out = _decode_attn(q[:, 0].contiguous(), kv_cache["k"],
-                           kv_cache["v"], decode_pos.lengths)[:, None]
+                           kv_cache["v"], decode_pos.lengths,
+                           softcap=cap)[:, None]
     elif offset is not None:
         if cfg.sliding_window is not None:
             raise ValueError("chunked prefill is undefined for ring-buffer "
@@ -183,34 +188,37 @@ def attention(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         # strided view, so it is copied
         out = _prefill_attn(q, kc[:, :end].contiguous(),
                             vc[:, :end].contiguous(), q_offset=offset,
-                            window=None)
+                            window=None, softcap=cap)
     else:
         _fill(kv_cache["k"], k)
         _fill(kv_cache["v"], v)
         out = _prefill_attn(q, k.to(kv_cache["k"].dtype),
                             v.to(kv_cache["v"].dtype), q_offset=0,
-                            window=cfg.sliding_window)
+                            window=cfg.sliding_window, softcap=cap)
     return _out_project(out, p["wo"])
 
 
 def _prefill_attn(q, k, v, *, q_offset: int, window: Optional[int],
-                  causal: bool = True) -> torch.Tensor:
+                  causal: bool = True, softcap: float = 0.0) -> torch.Tensor:
     """K2; on DTensors each rank's call on its shards
     (``distributed.local.attend``)."""
+    def kernel(a, b, c):
+        return FA.prefill_attention(a, b, c, q_offset=q_offset,
+                                    window=window, causal=causal,
+                                    softcap=softcap)
     if LD.is_dtensor(q, k, v):
-        return LD.attend(lambda a, b, c: FA.prefill_attention(
-            a, b, c, q_offset=q_offset, window=window, causal=causal),
-            q, k, v)
-    return FA.prefill_attention(q, k, v, q_offset=q_offset, window=window,
-                                causal=causal)
+        return LD.attend(kernel, q, k, v)
+    return kernel(q, k, v)
 
 
-def _decode_attn(q, k, v, lengths) -> torch.Tensor:
+def _decode_attn(q, k, v, lengths, *, softcap: float = 0.0) -> torch.Tensor:
     """K1; on DTensors each rank's call on its shards, a cache sharded
     over T gathered first (``distributed.local.attend``)."""
+    def kernel(a, b, c, n):
+        return FA.decode_attention(a, b, c, n, softcap=softcap)
     if LD.is_dtensor(q, k, v, lengths):
-        return LD.attend(FA.decode_attention, q, k, v, lengths)
-    return FA.decode_attention(q, k, v, lengths)
+        return LD.attend(kernel, q, k, v, lengths)
+    return kernel(q, k, v, lengths)
 
 
 def _out_project(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -246,11 +254,13 @@ def cross_attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
         q = q + p["bq"]
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.norm_eps)
+    cap = cfg.attn_logit_softcap
     if lengths is not None:
-        out = _decode_attn(q[:, 0].contiguous(), k, v, lengths)[:, None]
+        out = _decode_attn(q[:, 0].contiguous(), k, v, lengths,
+                           softcap=cap)[:, None]
     else:
         out = _prefill_attn(q, k, v, q_offset=0, window=cfg.sliding_window,
-                            causal=False)
+                            causal=False, softcap=cap)
     return _out_project(out, p["wo"])
 
 
@@ -259,17 +269,20 @@ def cross_attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
 # --------------------------------------------------------------------- #
 def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool, q_offset: Union[int, torch.Tensor],
-                  window: Optional[int], chunk: int) -> torch.Tensor:
+                  window: Optional[int], chunk: int,
+                  softcap: float = 0.0) -> torch.Tensor:
     """Scaled dot-product attention, chunked over the query axis (the
-    reference's ``_sdpa_chunked`` without softcap).
+    reference's ``_sdpa_chunked``).
 
     q: (B, Sq, H, D);  k/v: (B, Skv, Hkv, D).  ``q_offset`` (an int or
     (B,)) is the absolute position of q[0] relative to k[0].  With a
     sliding ``window`` and Skv > window + chunk only the last ``window +
     chunk`` keys are sliced per chunk, keeping FLOPs O(Sq * window).
-    Masked logits are -1e30; QK^T and PV accumulate in fp32 from the
-    inputs' values (the reference's ``preferred_element_type``), the
-    softmax weights rounded to v's dtype first."""
+    With a ``softcap`` > 0 the logits become ``tanh(logits / softcap) *
+    softcap`` before the mask.  Masked logits are -1e30; QK^T and PV
+    accumulate in fp32 from the inputs' values (the reference's
+    ``preferred_element_type``), the softmax weights rounded to v's dtype
+    first."""
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -283,6 +296,8 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         C = qc.shape[1]
         qg = qc.reshape(B, C, Hkv, rep, D)
         logits = torch.einsum("bqhrd,bkhd->bhrqk", qg.float(), kc.float())
+        if softcap > 0.0:
+            logits = torch.tanh(logits / softcap) * softcap
         kp = kpos[None, None, :]
         qp = qpos[:, :, None]
         mask = kp >= 0                              # padded window slots
@@ -350,7 +365,8 @@ def attention_train(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 
     def sdpa(q, k, v):
         return _sdpa_chunked(q, k, v, causal=causal, q_offset=0,
-                             window=cfg.sliding_window, chunk=q_chunk)
+                             window=cfg.sliding_window, chunk=q_chunk,
+                             softcap=cfg.attn_logit_softcap)
     # on DTensors each rank attends with its own query heads
     out = LD.attend(sdpa, q, k, v) if LD.is_dtensor(q, k, v) \
         else sdpa(q, k, v)
@@ -591,6 +607,24 @@ def ep_route(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
     return gates, flat_e, pos.clamp(max=C - 1).long(), keep, C
 
 
+class _ModelSum(torch.autograd.Function):
+    """The sum over a process group of each rank's partial output, left
+    on every rank.  Its gradient is the output's own on every rank (the
+    transpose of a sum into a replicated value), not a second all-reduce,
+    which would multiply it by the group's size."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        import torch.distributed as dist
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad, None
+
+
 def _moe_ep(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Capacity-based expert-parallel MoE under ``local_map``.
 
@@ -609,8 +643,15 @@ def _moe_ep(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     straight through.  On a mesh of more than one device x must be a
     DTensor.  The batched products are ``torch.bmm`` with fp32 results,
     as the reference's einsums (no K3), and nothing reads a device value
-    on the host."""
-    from torch.distributed.tensor import DTensor
+    on the host.
+
+    Gradients: each rank's are partial sums where its work was a share
+    of the whole, and ``local_map`` is told so: over the data axes that
+    shard the tokens, the router's and the experts' weights'; over
+    ``model``, x's and the router's (each rank's FFN shard and its part
+    of the combine).  The output's all-reduce passes its gradient through
+    unchanged (``_ModelSum``)."""
+    from torch.distributed.tensor import DTensor, Partial
     from torch.distributed.tensor.experimental import local_map
     mesh = current_mesh()
     if mesh is None:
@@ -655,22 +696,31 @@ def _moe_ep(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         rows = y[flat_e, pos_c] * keep[:, None]
         out = (rows.reshape(Tl, k, d) * gates[..., None]).sum(dim=1)
         if group is not None:
-            from torch.distributed.nn.functional import all_reduce
-            out = all_reduce(out, group=group)
+            out = _ModelSum.apply(out, group)
         return out.to(xl.dtype).reshape(Bl, Sl, d)
 
     def place(*entries):
         return SH.placements_for(SH.P(*entries), mesh)
+
+    def summed(pl, axes):
+        """``pl`` with the mesh dimensions of ``axes`` partial sums."""
+        return tuple(Partial() if a in axes else q
+                     for a, q in zip(sizes, pl))
     dspec = chosen if chosen else None
     x_pl = place(dspec, None, None)
     w_in = place(None, None, model_axis)     # (E, d, f/n): FFN width
     w_out = place(None, model_axis, None)    # (E, f/n, d)
+    in_pl = (x_pl, place(None, None), w_in, w_in, w_out)
+    model = (model_axis,) if model_axis is not None else ()
+    grad_pl = (summed(x_pl, model), summed(in_pl[1], chosen + model),
+               summed(w_in, chosen), summed(w_in, chosen),
+               summed(w_out, chosen))
     # one output: its placements as a list (a tuple would be read as one
     # placement list per output)
     return local_map(
-        local_fn, out_placements=list(x_pl),
-        in_placements=(x_pl, place(None, None), w_in, w_in, w_out),
-        device_mesh=mesh, redistribute_inputs=True,
+        local_fn, out_placements=list(x_pl), in_placements=in_pl,
+        in_grad_placements=grad_pl, device_mesh=mesh,
+        redistribute_inputs=True,
     )(x, p["router"], p["w_gate"], p["w_up"], p["w_down"])
 
 

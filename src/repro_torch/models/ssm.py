@@ -7,10 +7,11 @@ its decode (S == 1 with a state) is the O(1) recurrence in plain torch
 ops, as in JAX.  RWKV6's time mix runs the WKV recurrence through
 ``kernels.rwkv6.ops`` (K4) at every length, decode included.
 
-With ``train=True`` (no state) both blocks run the reference's own
-training scans in plain PyTorch instead, differentiated by autograd:
-``_ssd_chunk_scan`` and ``_wkv_scan`` (the kernels' ops define no
-backward).
+With ``train=True`` (no state) both blocks run training scans in plain
+PyTorch instead, differentiated by autograd (the kernels' ops define no
+backward): the reference's ``_ssd_chunk_scan``, and for RWKV6
+``_wkv_chunked``, the chunked form of the reference's per-token
+``_wkv_scan`` (which stays as its plain version).
 
 Parameter dicts and state layouts are the JAX ones.  A ``state`` passed
 to a block is a dict of per-layer views into the model's stacked cache
@@ -267,19 +268,103 @@ def _wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack(ys, dim=1), s
 
 
-def _wkv_scan_local(r, k, v, w, u, state) -> torch.Tensor:
-    """``_wkv_scan``'s output on DTensors, each rank scanning its shards
-    (its rows or heads; anything else gathered): one token's few ops a
-    step on local tensors, not DTensor's dispatch of each."""
+def _chunk_masks(C: int, device) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The 0/1 matrix whose rows pick, from a chunk's C tokens, those
+    each decay of ``_wkv_chunked`` spans, and the (t, s) pairs it
+    lists.  Rows: for t = 0..C the tokens before t (the last row the
+    whole chunk); for s < C those after s; for each pair s < t those
+    strictly between."""
+    ar = torch.arange(C, device=device)
+    it, is_ = torch.tril_indices(C, C, -1, device=device)
+    before = ar[None, :] < torch.arange(C + 1, device=device)[:, None]
+    after = ar[None, :] > ar[:, None]
+    between = (ar[None, :] > is_[:, None]) & (ar[None, :] < it[:, None])
+    return torch.cat([before, after, between]).float(), it, is_
+
+
+def _wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+                 chunk: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_wkv_scan`` in chunks of ``chunk`` tokens, the algebra of K4's
+    chunk kernel (``kernels/rwkv6/csrc/wkv.cu``) in plain differentiable
+    PyTorch: the training form.  Same arguments and result.
+
+    With t, s tokens of one chunk, S the state before it, A_t the decay
+    from the chunk's start to t, B_s from s to its end:
+      y_t = (r_t * A_t) . S + sum_{s<t} M[t,s] v_s + (r_t . (u * k_t)) v_t
+      M[t,s] = sum_i r_t[i] k_s[i] prod_{s<tau<t} w_tau[i]
+      S <- diag(A_C) S + sum_s (k_s * B_s) v_s^T
+    Every decay is exp of a sum of log w over exactly the tokens it
+    spans (one matmul with ``_chunk_masks``): nothing divides by a
+    product of decays, no exp takes a positive argument, and a fast
+    channel underflows to 0 as in the recurrence.  The terms inside the
+    chunks are computed for all chunks at once; only the carry of the
+    (B, H, P, P) state walks the chunks, one op each.  A ragged tail is
+    padded with k = 0 and w = 1, which leaves the state unchanged.  The
+    (pair, channel) tensors are chunk / 2 times the size of r."""
+    B, S, H, P = r.shape
+    C = chunk
+    pad = -S % C
+    nC = (S + pad) // C
+
+    def chunks(x, value=0.0):     # (B, S, H, P) -> (C, B, nC, H, P) fp32
+        x = F.pad(x.float(), (0, 0, 0, 0, 0, pad), value=value)
+        return x.view(B, nC, C, H, P).permute(2, 0, 1, 3, 4)
+
+    r, k, v = chunks(r), chunks(k), chunks(v)
+    w = chunks(w, 1.0)
+    # log w; an exact 0 (fp32 underflow of exp(-exp(ww))) gets a finite
+    # log whose exp is 0 over any span that holds it
+    live = w > 0
+    lw = torch.where(live, torch.log(torch.where(live, w, 1.0)), -1e4)
+    masks, it, is_ = _chunk_masks(C, w.device)
+    dec = torch.exp((masks @ lw.reshape(C, -1)).view(-1, B, nC, H, P))
+    A, A_C = dec[:C], dec[C]
+    Bd, D = dec[C + 1:2 * C + 1], dec[2 * C + 1:]
+    # each chunk's own contribution to the state at its end
+    U = torch.einsum("sbchp,sbchq->bchpq", k * Bd, v)
+    # the carry: S_{c+1} = diag(A_C[c]) S_c + U[c]
+    s = state.float()
+    starts = []
+    for a_c, u_c in zip(A_C[..., None].unbind(1), U.unbind(1)):
+        starts.append(s)
+        s = torch.addcmul(u_c, a_c, s)
+    y = torch.einsum("tbchp,bchpq->tbchq", r * A, torch.stack(starts, 1))
+    # inside the chunks: M over the pairs s < t, the bonus on t = s
+    M = torch.cat([(r[it] * k[is_] * D).sum(-1),
+                   (r * u * k).sum(-1)])              # (pairs + C, B, nC, H)
+    ar = torch.arange(C, device=w.device)
+    Mts = M.new_zeros((C, C) + M.shape[1:]).index_put(
+        (torch.cat([it, ar]), torch.cat([is_, ar])), M)
+    y = y + torch.einsum("tsbch,sbchq->tbchq", Mts, v)
+    y = y.permute(1, 2, 0, 3, 4).reshape(B, nC * C, H, P)
+    return y[:, :S], s
+
+
+def _group_norm(y: torch.Tensor) -> torch.Tensor:
+    """The time mix's norm of each head (population variance) of y (B,
+    S, H, P), flattened to (B, S, H P)."""
+    var, mean = torch.var_mean(y, dim=-1, keepdim=True, correction=0)
+    return ((y - mean) * torch.rsqrt(var + 64e-5)).flatten(2)
+
+
+def _wkv_train_local(r, k, v, w, u, state) -> torch.Tensor:
+    """``_group_norm`` of ``_wkv_chunked``'s output on DTensors, each rank
+    on its shards (its rows or heads; anything else gathered) on local
+    tensors, not through DTensor's dispatch of each op.  The norm and
+    the flattening of the heads run locally too: DTensor's backward of
+    that view cannot split a d sharded where the heads do not divide."""
     mesh = r.device_mesh
     seq = LD.mapped(r.placements, {0: 0, 2: 2})
     u_to = LD.mapped(seq, {2: 0})
     u_grad = tuple(Partial() if isinstance(p, Shard) and p.dim == 0 else q
                    for p, q in zip(seq, u_to))
     return LD.local_call(
-        lambda *a: _wkv_scan(*a)[0], mesh,
+        lambda *a: _group_norm(_wkv_chunked(*a)[0]), mesh,
         [(r, seq), (k, seq), (v, seq), (w, seq), (u, u_to, u_grad),
-         (state, LD.mapped(seq, {0: 0, 2: 1}))], [(seq, r.shape)])
+         (state, LD.mapped(seq, {0: 0, 2: 1}))],
+        [(seq, r.shape[:2] + (r.shape[2] * r.shape[3],))])
 
 
 def rwkv6_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -288,7 +373,9 @@ def rwkv6_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                    ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]]]:
     """RWKV6 time mix.  ``state`` = {"tm_x": (B,d), "wkv": (B,H,P,P)
     fp32}, updated in place; None for a fresh sequence.  ``train`` (no
-    state): the recurrence is ``_wkv_scan``, as the reference trains."""
+    state): the recurrence in chunks, ``_wkv_chunked`` (the reference
+    trains through its per-token ``_wkv_scan``, kept here as the plain
+    version the chunked form is held against)."""
     if train and state is not None:
         raise ValueError("the training form takes no state")
     B, S, d = x.shape
@@ -314,15 +401,12 @@ def rwkv6_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     s = state["wkv"] if state is not None else \
         torch.zeros((B, H, P, P), dtype=torch.float32, device=x.device)
     if train and LD.is_dtensor(r):
-        y = _wkv_scan_local(r, k, v, w, p["u"], s)
+        yh = _wkv_train_local(r, k, v, w, p["u"], s)
     elif train:
-        y, _ = _wkv_scan(r, k, v, w, p["u"], s)
+        yh = _group_norm(_wkv_chunked(r, k, v, w, p["u"], s)[0])
     else:
-        y = WKV.wkv(r, k, v, w, p["u"], s)            # s -> final state
-    # group norm per head (population variance)
-    var, mean = torch.var_mean(y, dim=-1, keepdim=True, correction=0)
-    yh = (y - mean) * torch.rsqrt(var + 64e-5)
-    y = yh.reshape(B, S, d) * p["ln_x"].float()
+        yh = _group_norm(WKV.wkv(r, k, v, w, p["u"], s))  # s -> final state
+    y = yh * p["ln_x"].float()
     out = LD.reduced(mm(y.to(x.dtype) * g, p["w_o"]))
     if state is not None:
         state["tm_x"].copy_(x[:, -1])

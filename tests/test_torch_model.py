@@ -168,12 +168,18 @@ def test_encdec_and_vlm_build_but_are_not_served(arch):
 @pytest.mark.parametrize("option", [dict(family="moe", moe_impl="ep"),
                                     dict(attn_logit_softcap=30.0)])
 def test_unported_dense_options_raise(option):
-    """The softcap is not ported; ``ep`` is, and raises at its forward
-    without a device mesh."""
+    """Both options are ported.  The softcap serves (its parity with the
+    reference is ``test_torch_softcap.py``'s); ``ep`` raises at its
+    forward without a device mesh."""
     cfg = dataclasses.replace(TC.get_smoke("llama3_8b"), **option)
     if "moe_impl" not in option:
-        with pytest.raises(NotImplementedError):
-            TM.init_cache(cfg, 1, 8, device="cpu")
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        params = TM.init_params(cfg, device="cpu")
+        logits, _ = TM.prefill(params, cfg,
+                               torch.zeros((1, 4), dtype=torch.int32),
+                               TM.init_cache(cfg, 1, 8, device="cpu"))
+        assert logits.shape == (1, cfg.padded_vocab)
+        assert torch.isfinite(logits).all()
         return
     cfg = dataclasses.replace(cfg, num_experts=4, experts_per_token=2,
                               dtype="float32")

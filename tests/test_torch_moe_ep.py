@@ -12,15 +12,20 @@ The reference has no test of its ``_moe_ep``, so the oracles are:
   * on a (2 data x 2 model) mesh: 4 gloo ranks with DTensor inputs
     against the reference's ``shard_map`` on 4 JAX host devices, with
     and without drops, and with a batch of 1 (tokens replicated over
-    data);
+    data); and on each rank the gradients of a loss of ``ep``'s output
+    (``moe_train``, every input and weight a DTensor) against those of
+    the ``ragged`` path on plain tensors, at capacity E/k (dropless).
+    The reference's ``shard_map`` runs with ``check_vma=False``, so its
+    transpose is no settled oracle for ``ep``'s gradients; the ragged
+    path computes the same function without a collective;
   * under a (1, 1) mesh: the model's prefill / decode logits and greedy
     tokens, and ``loss_fn`` with its gradients against
     ``jax.value_and_grad`` (the model tolerance, 1e-4, and
     ``test_torch_train.py``'s gradient tolerance); the port's engine
     gives the ``ragged`` engine's greedy tokens when nothing drops;
-  * ``check_supported`` accepts ``ep`` and still refuses the softcap;
-    ``ep`` raises without a mesh, and on a mesh of several devices
-    without a DTensor.
+  * ``check_supported`` accepts ``ep`` and the softcap (a negative one
+    is refused); ``ep`` raises without a mesh, and on a mesh of several
+    devices without a DTensor.
 
 Every process group lives in a subprocess (``_torch_dist``): one for
 the one-device checks (a one-rank gloo group) and one for the 2 x 2
@@ -336,33 +341,74 @@ MESH_CASES = [("dropless", "gpt_oss_20b", 4, 6, 2.0, False),
               ("drops", "gpt_oss_20b", 4, 8, None, True),
               ("drops", "dbrx_132b", 4, 8, None, True),
               ("batch_1", "mixtral_8x7b", 1, 9, None, True)]
+# the gradient cases: (name, arch, B, S), at capacity E/k (dropless)
+MESH_GRAD_CASES = [("grads", "gpt_oss_20b", 4, 6),
+                   ("grads_batch_1", "mixtral_8x7b", 1, 9)]
+GRAD_NAMES = ("x", "router", "w_gate", "w_up", "w_down")
+
+
+def _placed(p, x, mesh, B):
+    """x and the MoE weights as DTensors placed as the reference's
+    shard_map specs (tokens over data where B splits, experts' f over
+    model)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    rep = (Replicate(), Replicate())
+    xd = distribute_tensor(torch.from_numpy(x).clone(), mesh,
+                           (Shard(0) if B % 2 == 0 else Replicate(),
+                            Replicate()))
+    w = {"router": (p["router"], rep),
+         "w_gate": (p["w_gate"], (Replicate(), Shard(2))),
+         "w_up": (p["w_up"], (Replicate(), Shard(2))),
+         "w_down": (p["w_down"], (Replicate(), Shard(1)))}
+    return xd, {n: distribute_tensor(torch.from_numpy(np.array(a)), mesh, pl)
+                for n, (a, pl) in w.items()}
+
+
+def _loss_weights(x):
+    return torch.linspace(-1.0, 1.0, x.size).reshape(x.shape)
+
+
+def _ep_and_ragged_grads(p, x, arch, mesh, B):
+    """The gradients (GRAD_NAMES) of sum(y * c) for ``ep``'s ``moe_train``
+    on DTensors over ``mesh`` (gathered whole) and for the ragged path's
+    on plain tensors, at capacity E/k."""
+    jcfg, _ = _cfgs(arch)
+    _, tcfg = _ep(arch, jcfg.num_experts / jcfg.experts_per_token)
+    c = _loss_weights(x)
+    plain = [torch.from_numpy(np.array(a)).requires_grad_()
+             for a in (x, *(p[n] for n in GRAD_NAMES[1:]))]
+    y = TL.moe_train(dict(zip(GRAD_NAMES[1:], plain[1:])), plain[0],
+                     dataclasses.replace(tcfg, moe_impl="ragged"))
+    ragged = torch.autograd.grad((y * c).sum(), plain)
+    with mesh_context(mesh):
+        xd, pd = _placed(p, x, mesh, B)
+        leaves = [xd.requires_grad_()] + [pd[n].requires_grad_()
+                                          for n in GRAD_NAMES[1:]]
+        y = TL.moe_train(dict(zip(GRAD_NAMES[1:], leaves[1:])), leaves[0],
+                         tcfg)
+        ep = torch.autograd.grad((y.full_tensor() * c).sum(), leaves)
+        ep = [g.full_tensor().numpy() for g in ep]
+    return ep, [g.numpy() for g in ragged]
 
 
 def ep_rank(rank, world, inputs_file):
     """One gloo rank of the (2, 2) mesh: every case's output through
-    DTensor inputs placed as the reference's shard_map specs."""
+    DTensor inputs placed as the reference's shard_map specs, and the
+    gradient cases' ``ep`` and ragged gradients."""
     import pickle
-    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
     with open(inputs_file, "rb") as f:
-        cases = pickle.load(f)
+        cases, grad_cases = pickle.load(f)
     mesh = TMESH.make_mesh((2, 2), ("data", "model"), device_type="cpu")
     out = {}
     with mesh_context(mesh):
         for (name, arch, B, S, factor, drops), (p, x) in cases.items():
             _, tcfg = _ep(arch, factor)
-            rep = (Replicate(), Replicate())
-            xd = distribute_tensor(torch.from_numpy(x), mesh,
-                                   (Shard(0) if B % 2 == 0 else Replicate(),
-                                    Replicate()))
-            w = {"router": (p["router"], rep),
-                 "w_gate": (p["w_gate"], (Replicate(), Shard(2))),
-                 "w_up": (p["w_up"], (Replicate(), Shard(2))),
-                 "w_down": (p["w_down"], (Replicate(), Shard(1)))}
-            pd = {n: distribute_tensor(torch.from_numpy(a), mesh, pl)
-                  for n, (a, pl) in w.items()}
+            xd, pd = _placed(p, x, mesh, B)
             y = TL.moe(pd, xd, tcfg)
             out[name, arch] = (tuple(y.placements) == xd.placements,
                                y.full_tensor().numpy())
+    for (name, arch, B, S), (p, x) in grad_cases.items():
+        out[name, arch] = _ep_and_ragged_grads(p, x, arch, mesh, B)
     return out
 
 
@@ -386,9 +432,12 @@ def two_by_two() -> dict:
                          tcfg.num_experts, tcfg.moe_capacity_factor,
                          shards=2 if B % 2 == 0 else 1)
         ref[name, arch] = (want, int((~kept).sum()))
+    grad_cases = {case: _layer_inputs(case[1], case[2], case[3], False,
+                                      seed=case[2] * case[3] + 1)
+                  for case in MESH_GRAD_CASES}
     with tempfile.TemporaryDirectory() as d:
         f = os.path.join(d, "cases.pkl")
-        save(f, cases)
+        save(f, (cases, grad_cases))
         ranks = gloo_world(ep_rank, 4, f)
     return {"ref": ref, "ranks": ranks,
             "initialized": dist.is_initialized()}
@@ -416,14 +465,38 @@ def test_two_by_two_mesh_matches_reference(mesh_2x2, case):
     assert mesh_2x2["initialized"] is False
 
 
+@pytest.mark.parametrize("case", MESH_GRAD_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in MESH_GRAD_CASES])
+def test_two_by_two_ep_gradients_match_ragged(mesh_2x2, case):
+    """On every rank of the 2 x 2 mesh, ``ep``'s gradients of x and of
+    every MoE weight (all reduced across the ranks that hold a shard)
+    equal the ragged path's at capacity E/k, at GRAD_TOL, its atol in
+    units of each gradient's largest magnitude above 1."""
+    name, arch = case[:2]
+    for rank_out in mesh_2x2["ranks"]:
+        ep, ragged = rank_out[name, arch]
+        assert len(ep) == len(ragged) == len(GRAD_NAMES)
+        for n, a, b in zip(GRAD_NAMES, ep, ragged):
+            assert a.shape == b.shape, n
+            assert np.abs(b).max() > 0, n
+            scale = max(1.0, float(np.abs(b).max()))
+            np.testing.assert_allclose(a, b, rtol=GRAD_TOL["rtol"],
+                                       atol=GRAD_TOL["atol"] * scale,
+                                       err_msg=n)
+    assert mesh_2x2["initialized"] is False
+
+
 # --------------------------------------------------------------------- #
 # In this process: no group
 # --------------------------------------------------------------------- #
 def test_check_supported_accepts_ep_and_refuses_softcap():
+    """``ep`` and the logit softcap are both accepted, together too; only
+    a negative softcap is refused."""
     _, tcfg = _ep("gpt_oss_20b")
     TL.check_supported(tcfg)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        TL.check_supported(dataclasses.replace(tcfg, attn_logit_softcap=30.0))
+    TL.check_supported(dataclasses.replace(tcfg, attn_logit_softcap=30.0))
+    with pytest.raises(ValueError, match="softcap"):
+        TL.check_supported(dataclasses.replace(tcfg, attn_logit_softcap=-1.0))
 
 
 def test_ep_without_a_mesh_raises():
