@@ -240,6 +240,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -306,6 +307,15 @@ PEAK_FLOPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
 # ulps (2^-7 relative) of disagreement are expected.
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1e-2, 2e-2)}
 GMM_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
+# K1's log-sum-exp form at T 32768 and its 16-shard merge ("roofline"
+# (e)): TOL's atol is about the size of a long row's output (~0.01), so
+# each row (b) is held instead to LONG_ROW_REL of its own largest |value|,
+# and the log-sum-exp (~10.9) to LONG_LSE_ATOL.  Set between the readings
+# on an H100 (PERF.md): the sound kernel and merge at most 7.5e-3 and
+# 7.6e-4 (the plain version's bf16 rounding of q x scale at D 128), a
+# planted fault at least 7.0e-2 or 2.7e-3 (one 64-key tile lost, one
+# shard dropped or weighed twice), which (e) plants again on each run.
+LONG_ROW_REL, LONG_LSE_ATOL = 2e-2, 2e-3
 # Full-width model, kernels vs plain versions: max|a - b| / max|b| of the
 # logits.  Per-layer bf16 differences of the size above propagate through
 # the layers; in fp32 they are summation-order differences.
@@ -345,6 +355,8 @@ SHADOW_BOUND = {"wkv": (1e-5, (0, 1, 2, 4, 5)), "ssd": (1e-4, (0, 1, 2, 4))}
 FREE_RUN_K = 3.0
 
 REPLACES = {"flash_decode": "src/repro/kernels/flash_attention/kernel.py:188",
+            "flash_decode_lse":
+                "src/repro/kernels/flash_attention/kernel.py:188",
             "flash_prefill": "src/repro/kernels/flash_attention/kernel.py:93",
             "gmm": "src/repro/kernels/moe_gmm/kernel.py:32",
             "wkv": "src/repro/kernels/rwkv6/kernel.py:53",
@@ -361,7 +373,13 @@ D256_KERNELS = {"flash_prefill": (("prefill_wgmma_kernel", ("HGMMA",
                                                             "UTMALDG")),
                                   ("prefill_fma_kernel", ())),
                 "flash_decode": (("decode_mma_kernel", ("HMMA", "LDGSTS")),
-                                 ("decode_fma_kernel", ()))}
+                                 ("decode_fma_kernel", ()),
+                                 ("decode_mma_lse_kernel", ("HMMA",
+                                                            "LDGSTS")),
+                                 ("decode_fma_lse_kernel", ()))}
+# K1's log-sum-exp kernels, each instantiated at every head_dim
+LSE_KERNELS = ("decode_mma_lse_kernel", "decode_fma_lse_kernel")
+LSE_HEAD_DIMS = (64, 112, 128, 256)
 FA_SRC = "src/repro_torch/kernels/flash_attention/csrc/"
 GMM_SRC = "src/repro_torch/kernels/moe_gmm/csrc/gmm.cu"
 WKV_SRC = "src/repro_torch/kernels/rwkv6/csrc/wkv.cu"
@@ -407,6 +425,25 @@ def check(name, got, want, tol) -> float:
             f"{name}: {int(bad.sum())} elements outside atol={atol} "
             f"rtol={rtol}; max abs err {float(err.max()):.3e}")
     return float(err.max())
+
+
+def row_rel_err(got, want) -> float:
+    """max over rows (dimension 0) of max|got - want| / max|want| in the
+    row; inf if a value is not finite or the shapes differ."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.isfinite(got.float()).all():
+        return float("inf")
+    err = (got.float() - want.float()).abs().flatten(1).amax(1)
+    return float((err / want.float().abs().flatten(1).amax(1)).max())
+
+
+def check_rows(name, got, want, rel) -> float:
+    """``row_rel_err`` of got against want, which must be at most rel."""
+    err = row_rel_err(got, want)
+    if not err <= rel:
+        raise AssertionError(f"{name}: a row is {err:.3e} of its largest "
+                             f"|value| off (limit {rel})")
+    return err
 
 
 def kcost():
@@ -459,6 +496,26 @@ def phase_build(nvcc, kernels) -> None:
                                      f"instruction is missing from its "
                                      f"machine code ({found})")
     check_d256_build(nvcc, libs)
+    check_lse_build(nvcc, libs)
+
+
+def check_lse_build(nvcc, libs) -> None:
+    """Every instantiation of K1's log-sum-exp kernels (LSE_KERNELS at
+    each head_dim, without and with the softcap) is in ptxas's report,
+    with 0 bytes of spill stores and loads."""
+    usage = nvcc.ptxas_usage(nvcc.build_log(libs["flash_decode"]))
+    for kern in LSE_KERNELS:
+        for D, cap in ((d, c) for d in LSE_HEAD_DIMS for c in (0, 1)):
+            tag = f"{kern}ILi{D}ELb{cap}E"
+            reports = [u for f, u in usage.items() if tag in f]
+            if len(reports) != 1 or reports[0]["spill_stores"] \
+                    or reports[0]["spill_loads"]:
+                raise AssertionError(f"flash_decode: {kern}<{D}, "
+                                     f"{'cap' if cap else 'no cap'}>: "
+                                     f"ptxas reports {reports}")
+    log(f"[build] flash_decode: {' and '.join(LSE_KERNELS)} at head_dim "
+        f"{', '.join(map(str, LSE_HEAD_DIMS))}, without and with the cap: "
+        "0 bytes of spill stores and loads")
 
 
 def check_d256_build(nvcc, libs) -> None:
@@ -1075,6 +1132,115 @@ def time_softcap(g, FK, FR, errs) -> list:
     return rows
 
 
+# K1's log-sum-exp form (for a cache sharded over T: each shard's output
+# in float32 and its log-sum-exp, merged by the caller) at every head_dim,
+# without and with the softcap, over three sets of lengths: the serve
+# shape, ragged, and rows of length 0 (a shard that holds none of a row's
+# tokens) beside a row that ends inside the first of K1's splits and a
+# full one (the head shapes of SOFTCAP_ATTN).
+def lse_lengths(FK, attn) -> list:
+    """The three sets of lengths of one head shape (the split planner's
+    first split from its own count for this card)."""
+    nsplit = FK.decode_splits(B, attn[1], MAX_LEN, FK._sm_count(0))
+    first = FK.split_bounds(MAX_LEN, nsplit)[0][1]
+    return [[PROMPT] * B, [1, 300, 77, MAX_LEN],
+            [0, first // 2 + 1, 0, MAX_LEN]]
+
+
+def flash_lse(q, k, v):
+    """PyTorch's flash attention with its log-sum-exp over every key of
+    k/v, each KV head's rep query heads as rep queries of one head (K/V
+    read in place, no copy).  -> (o (B, H, D), lse (B, H))."""
+    B, H, D = q.shape
+    Hkv = k.shape[2]
+    o, lse = torch.ops.aten._scaled_dot_product_flash_attention(
+        q.view(B, Hkv, H // Hkv, D), k.transpose(1, 2),
+        v.transpose(1, 2))[:2]
+    return o.reshape(B, H, D), lse.reshape(B, H)
+
+
+LSE_LIBRARY = "_scaled_dot_product_flash_attention"
+
+
+def lse_library(args, FR, dtype):
+    """The library call for K1's log-sum-exp form on ``args`` (q, k, v,
+    lengths), whose rows all have one length n: ``flash_lse`` over the
+    cache's first n tokens (a view; no mask is needed), its output and
+    log-sum-exp held at TOL against the plain version's.  -> fn(q, k, v,
+    lengths)."""
+    q, kk, vv, lens = args
+    n = int(lens[0])
+    if not bool((lens == n).all()):
+        raise ValueError(f"{LSE_LIBRARY}: rows of one length only, not "
+                         f"{lens.tolist()}")
+
+    def fn(q, k, v, _):
+        return flash_lse(q, k[:, :n], v[:, :n])
+    o, lse = fn(*args)
+    po, plse = FR.decode_attention_lse(*args)
+    check(f"{LSE_LIBRARY} vs plain (o)", o, po, TOL[dtype])
+    check(f"{LSE_LIBRARY} vs plain (lse)", lse, plse, TOL[dtype])
+    return fn
+
+
+def check_and_time_lse(g, FK, FR) -> float:
+    """K1's log-sum-exp form against its plain version, o and lse, at
+    every head_dim of SOFTCAP_ATTN, with and without the softcap (the cap
+    bites: the capped lse lies at least SOFTCAP_MIN_GAP x atol from the
+    uncapped), over ``lse_lengths``, in fp32 and bf16; its output, rounded
+    to the input dtype, against K1's on the same inputs; no NaN for rows
+    of length 0 (o 0, lse -1e30).  Then timed at llama3-8b's B 4 (lengths
+    512) beside K1, the plain version and the library call.  Returns the
+    largest bf16 error."""
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for D, attn in SOFTCAP_ATTN.items():
+            for lengths in lse_lengths(FK, attn):
+                args = decode_inputs(g, dtype, lengths, attn)
+                empty = args[3] == 0
+                lses = {}
+                for cap in (0.0, SOFTCAP_KERNEL):
+                    what = (f"K1 lse {tag} softcap {cap} (H, Hkv, D)={attn} "
+                            f"lengths={lengths}")
+                    o, lse = FK.flash_decode_lse(*args, softcap=cap)
+                    po, plse = FR.decode_attention_lse(*args, cap)
+                    e = max(check(what + " o", o, po, TOL[dtype]),
+                            check(what + " lse", lse, plse, TOL[dtype]))
+                    k1 = FK.flash_decode(*args, softcap=cap)
+                    e1 = check(what + " vs K1", o.to(dtype)[~empty],
+                               k1[~empty], TOL[dtype])
+                    if not (bool((o[empty] == 0).all())
+                            and bool((lse[empty] == -1e30).all())):
+                        raise AssertionError(f"{what}: a row of length 0 "
+                                             "gave o != 0 or lse != -1e30")
+                    lses[cap] = lse
+                    log(f"[kernels] {what}: max abs err {e:.3e} (o and lse "
+                        f"vs plain), o vs K1's {e1:.3e} (bitwise "
+                        f"{torch.equal(o.to(dtype)[~empty], k1[~empty])})")
+                    if dtype == torch.bfloat16:
+                        worst = max(worst, e)
+                gap = float((lses[0.0] - lses[SOFTCAP_KERNEL]).abs().max())
+                if gap < SOFTCAP_MIN_GAP * TOL[dtype][0]:
+                    raise AssertionError(f"K1 lse {tag} {attn} {lengths}: "
+                                         f"the cap does not bite ({gap:.3e})")
+    dt = torch.bfloat16
+    H, Hkv, D = LLAMA_ATTN
+    sets = [decode_inputs(g, dt, [PROMPT] * B, LLAMA_ATTN) for _ in range(6)]
+    lib_fn = lse_library(sets[0], FR, dt)
+    t = {"lse": time_ms(FK.flash_decode_lse, sets),
+         "k1": time_ms(FK.flash_decode, sets),
+         "plain": time_ms(FR.decode_attention_lse, sets, iters=10),
+         "library": time_ms(lib_fn, sets)}
+    bnd = bound(kcost().decode_lse(B, H, Hkv, D, B * PROMPT, 2), dt)
+    log(f"[kernels] flash_decode_lse bf16 B {B} (H, Hkv, D)={LLAMA_ATTN} "
+        f"lengths {PROMPT} on {card()}: kernel {t['lse']:.4f} ms, K1 without "
+        f"the log-sum-exp {t['k1']:.4f} ms, plain {t['plain']:.4f} ms, "
+        f"{LSE_LIBRARY} {t['library']:.4f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    return worst
+
+
 def gmm_inputs(g, dtype, sizes, w):
     x = randn(g, sum(sizes), w.shape[1], dtype=dtype)
     return x, w, torch.tensor(sizes, dtype=torch.int32, device=DEV)
@@ -1354,7 +1520,8 @@ def check_two_streams(g, FK, FR, WK, WR) -> None:
 # --------------------------------------------------------------------- #
 # 3-7. models
 # --------------------------------------------------------------------- #
-KERNEL_NAMES = ("flash_decode", "flash_prefill", "gmm", "wkv", "ssd")
+KERNEL_NAMES = ("flash_decode", "flash_decode_lse", "flash_prefill", "gmm",
+                "wkv", "ssd")
 
 
 @contextlib.contextmanager
@@ -2766,6 +2933,123 @@ def time_long_attention(k, batch: int) -> None:
                "of logits)"))
 
 
+LSE_SHARDS = 16                       # (e): the pod's model axis
+
+
+def long_lse_merge(k, batch: int) -> dict:
+    """(e) K1's log-sum-exp form at the decode cell's shape (B ``batch``,
+    T 32768, bf16), every row's cache full: held against its plain
+    version (each row's output at LONG_ROW_REL, the log-sum-exp at
+    LONG_LSE_ATOL), and timed beside K1, the plain version, the library
+    call and its bound (the JSON row).  Then the cache cut into
+    LSE_SHARDS T shards on the card, as the pod's model axis cuts it,
+    each shard's lengths clipped as ``distributed.local.attend`` clips
+    them (ragged rows, so that some shards hold none of a row's tokens),
+    the form run on each and merged by ``merge_partials``, the function
+    ``attend`` merges with, held at LONG_ROW_REL against K1 over the
+    whole T and against the plain version.  Planted faults must fail
+    those limits: the form with one 64-key tile lost, and the merge with
+    a shard dropped, weighed twice or short of one 64-key tile."""
+    from repro_torch.distributed.local import merge_partials
+    H, Hkv, D = LLAMA_ATTN
+    dt, T = torch.bfloat16, ROOFLINE_T
+    g = torch.Generator(device=DEV)
+    g.manual_seed(9)
+    q = randn(g, batch, H, D, dtype=dt)
+    kk, vv = (randn(g, batch, T, Hkv, D, dtype=dt) for _ in range(2))
+    full = torch.full((batch,), T, dtype=torch.int32, device=DEV)
+    args = (q, kk, vv, full)
+    po, plse = k.FR.decode_attention_lse(*args)
+
+    def held(what, o, lse) -> tuple:
+        """(row error of o, max |lse error|) against the plain version
+        over the whole T; fails above the limits."""
+        e_l = check(what + " lse", lse, plse, (LONG_LSE_ATOL, 0.0))
+        return check_rows(what + " o", o, po, LONG_ROW_REL), e_l
+
+    def planted(what, o, lse=None, want=po) -> str:
+        """A fault's errors, which must exceed a limit."""
+        e_o = row_rel_err(o, want)
+        e_l = 0.0 if lse is None else float((lse - plse).abs().max())
+        if e_o <= LONG_ROW_REL and e_l <= LONG_LSE_ATOL:
+            raise AssertionError(f"(e) the check misses a planted fault, "
+                                 f"{what}: row error {e_o:.3e}, lse "
+                                 f"{e_l:.3e}")
+        return f"{what} {e_o:.3e}" + ("" if lse is None
+                                      else f" (lse {e_l:.3e})")
+
+    o, lse = k.FA.decode_attention_lse(*args)
+    e_o, e_l = held("K1 lse decode_32k", o, lse)
+    err = max(float((o - po).abs().max()), e_l)
+    del o, lse
+    plants = [planted("one 64-key tile lost", *k.FA.decode_attention_lse(
+        q, kk, vv, full - 64))]
+    lib_fn = lse_library(args, k.FR, dt)
+    row = {"name": "flash_decode_lse", "route": "cuda",
+           "source": FA_SRC + "flash_decode.cu",
+           "replaces": REPLACES["flash_decode_lse"], "launches": 0,
+           "max_abs_err": err,
+           "ms": time_ms(lambda: k.FA.decode_attention_lse(*args), [()]),
+           "plain_ms": time_ms(lambda: k.FR.decode_attention_lse(*args),
+                               [()], iters=3),
+           **bound(kcost().decode_lse(batch, H, Hkv, D, batch * T, 2), dt),
+           "library_ms": time_ms(lambda: lib_fn(*args), [()])}
+    k1_ms = time_ms(lambda: k.FA.decode_attention(*args), [()])
+    log(f"[roofline] (e) flash_decode_lse bf16 B {batch} T {T} (H, Hkv, D)="
+        f"{LLAMA_ATTN} on {card()}: vs plain, o's rows {e_o:.3e} of their "
+        f"largest |value| (limit {LONG_ROW_REL}), lse {e_l:.3e} (limit "
+        f"{LONG_LSE_ATOL}), max abs err {err:.3e} (o and lse); "
+        f"kernel {row['ms']:.4f} ms, K1 without the log-sum-exp "
+        f"{k1_ms:.4f} ms, plain {row['plain_ms']:.4f} ms, {LSE_LIBRARY} "
+        f"{row['library_ms']:.4f} ms (CUDA events), bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    # ragged rows: full, one token, inside the first shard, on a shard
+    # boundary and one past it, one short of full, three quarters
+    tl = T // LSE_SHARDS
+    pick = [T, 1, tl // 2, tl, tl + 1, T - 1, 3 * T // 4]
+    lens = torch.tensor([pick[i % len(pick)] for i in range(batch)],
+                        dtype=torch.int32, device=DEV)
+    shards, short = [], None
+    cut = LSE_SHARDS // 3          # a shard that all long rows reach
+    for i in range(LSE_SHARDS):
+        sk, sv = (x[:, i * tl:(i + 1) * tl].contiguous() for x in (kk, vv))
+        n = (lens - i * tl).clamp(0, tl).to(torch.int32)
+        shards.append(k.FA.decode_attention_lse(q, sk, sv, n))
+        if i == cut:
+            short = k.FA.decode_attention_lse(
+                q, sk, sv, (n - 64).clamp(0, tl).to(torch.int32))
+        del sk, sv
+    empty = sum(int((s[1] == -1e30).all(-1).sum()) for s in shards)
+    os_ = torch.stack([s[0] for s in shards])
+    ls_ = torch.stack([s[1] for s in shards])
+    got = merge_partials(os_, ls_)
+    want = k.FR.decode_attention_lse(q, kk, vv, lens)[0]
+    e_k1 = check_rows(f"K1 lse {LSE_SHARDS} shards merged vs K1 over T",
+                      got.to(dt), k.FA.decode_attention(q, kk, vv, lens),
+                      LONG_ROW_REL)
+    e_pl = check_rows(f"K1 lse {LSE_SHARDS} shards merged vs plain", got,
+                      want, LONG_ROW_REL)
+    rest = [i for i in range(LSE_SHARDS) if i != cut]
+    twice = ls_.clone()
+    twice[cut] += math.log(2.0)
+    o_s, l_s = os_.clone(), ls_.clone()
+    o_s[cut], l_s[cut] = short
+    plants += [planted(what, merge_partials(o, lse_), want=want)
+               for what, o, lse_ in (
+                   (f"shard {cut} dropped", os_[rest], ls_[rest]),
+                   (f"shard {cut} weighed twice", os_, twice),
+                   (f"shard {cut} short of a 64-key tile", o_s, l_s))]
+    log(f"[roofline] (e) K1 lse over {LSE_SHARDS} T shards of {tl} at B "
+        f"{batch}, lengths {lens.tolist()} ({empty} of "
+        f"{LSE_SHARDS * batch} (shard, row) pairs empty), merged by "
+        f"merge_partials: rows {e_k1:.3e} of their largest |value| off K1 "
+        f"over the whole T, {e_pl:.3e} off the plain version (limit "
+        f"{LONG_ROW_REL}); planted faults fail it: " + "; ".join(plants))
+    del q, kk, vv, shards, os_, ls_, o_s, l_s, short
+    torch.cuda.empty_cache()
+    return row
+
+
 def reduced_cells() -> list:
     """(b): the three reduced cells (cell, batch, seq); the decode cell's
     B the largest whose dry-run arguments + temp bytes stay under
@@ -2896,11 +3180,15 @@ def roofline_cell(cell, batch, seq) -> tuple:
     return out, args, step
 
 
-def dtensor_decode(cell, args, k) -> None:
+def dtensor_decode(cell, args, k) -> dict:
     """(c): the decode step once more with every parameter, cache and
     batch leaf a DTensor on the (1, 1) mesh (sharing the plain tensors'
     storage): logits within MODEL_RTOL of the plain step's, K1 launched
-    once per layer."""
+    once per layer; then with the cache's T sharded over the mesh's
+    ``model`` dimension (of size 1), as the pod shards it: the T-sharded
+    path of ``distributed.local.attend`` (K1's log-sum-exp form once per
+    layer, the merge's all-reduces over NCCL), at MODEL_RTOL too.
+    Returns the launches of the log-sum-exp form."""
     from repro_torch.distributed import sharding as SH
     from repro_torch.distributed.context import current_mesh
     from repro_torch.launch import dryrun as D
@@ -2933,12 +3221,41 @@ def dtensor_decode(cell, args, k) -> None:
         f"plain step's (MODEL_RTOL {MODEL_RTOL[torch.bfloat16]}), K1 "
         f"launched {n['flash_decode']} times (one per layer), placing the "
         f"tensors grew memory by {grown / 1e6:.1f} MB")
+    # each leaf (L, B, T, Hkv, D) as this rank's whole shard of itself,
+    # its storage shared (``distribute_tensor`` would copy it)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    before = torch.cuda.memory_allocated()
+    dct = pytree.tree_map(lambda t: DTensor.from_local(
+        t, mesh, (Replicate(), Shard(2)), run_check=False, shape=t.shape,
+        stride=t.stride()), cache)
+    grown = torch.cuda.memory_allocated() - before
+    reset_counts(k)
+    got, _ = step(dp, dct, db)
+    torch.cuda.synchronize()
+    n = counts(k)
+    got = got.full_tensor()
+    gap = float((got[:, :V].float() - want[:, :V].float()).abs().max()
+                / want[:, :V].float().abs().max())
+    if gap > MODEL_RTOL[torch.bfloat16] or n["flash_decode"] \
+            or n["flash_decode_lse"] != n_layers \
+            or not torch.isfinite(got).all():
+        raise AssertionError(f"[roofline] (c) T-sharded DTensor decode: "
+                             f"logit gap {gap:.3e}, launches {n}")
+    log(f"[roofline] (c) {cell.arch} decode, the cache's T sharded over "
+        f"the model dimension: logits within {gap:.3e} of the plain step's "
+        f"(MODEL_RTOL {MODEL_RTOL[torch.bfloat16]}), K1's log-sum-exp form "
+        f"launched {n['flash_decode_lse']} times (one per layer), K1 "
+        f"{n['flash_decode']}; placing the cache grew memory by "
+        f"{grown / 1e6:.1f} MB")
+    return {"flash_decode_lse": n["flash_decode_lse"]}
 
 
-def phase_roofline(k) -> None:
+def phase_roofline(k) -> tuple:
     """(a) the three full-width dry runs in subprocesses, while (d) holds
     K2 at S 32768 and (b) dry-runs the reduced cells on the (1, 1) mesh;
-    then (b)'s real steps and (c) the DTensor decode."""
+    then (b)'s real steps, (c) the DTensor decode (replicated, then
+    T-sharded) and (e) K1's log-sum-exp form at the decode cell's shape.
+    Returns (e)'s row of the kernels' record and (c)'s launches."""
     t0 = time.perf_counter()
     procs = start_dryruns()
     try:
@@ -2951,10 +3268,11 @@ def phase_roofline(k) -> None:
                 row, args, step = roofline_cell(cell, batch, seq)
                 rows.append(row)
                 if cell.step_kind == "decode":
-                    dtensor_decode(cell, args, k)
+                    launches = dtensor_decode(cell, args, k)
                 del args, step
                 torch.cuda.empty_cache()
             time_long_attention(k, cells[0][1])
+            row = long_lse_merge(k, cells[0][1])
     finally:
         for *_, p in procs:
             if p.poll() is None:
@@ -2962,6 +3280,7 @@ def phase_roofline(k) -> None:
                 p.wait()
     log("[roofline] " + json.dumps(rows))
     log(f"[roofline] phase {time.perf_counter() - t0:.1f} s")
+    return row, launches
 
 
 # --------------------------------------------------------------------- #
@@ -4301,6 +4620,7 @@ def main() -> int:
     rows += check_and_time_encdec_vlm(g, FK, FR)
     rows += check_and_time_d256(g, FK, FR)
     rows += time_softcap(g, FK, FR, check_softcap(g, FK, FR))
+    check_and_time_lse(g, FK, FR)
     check_two_streams(g, FK, FR, WK, WR)
     log_phase("kernels")
     launches = {}
@@ -4355,7 +4675,9 @@ def main() -> int:
                                       sliding_window=SMALL_WINDOW),
                   [PROMPT, 300, 130, 5], phase_window_softcap))
     # after "ep", with gpt-oss-20b's weights freed
-    phase_roofline(k)
+    row, lse_launches = phase_roofline(k)
+    rows.append(row)
+    launches.update(lse_launches)
     log_phase("roofline")
     # the recurrent models first in fp32 at full depth (11.7 and 25.2 GiB
     # of parameters): the tight logit check; zamba2's prompt of 300 ends in

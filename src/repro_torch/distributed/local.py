@@ -11,9 +11,11 @@ with placements chosen here (``local_call``):
   copy, and the write would be lost;
 * attention (K1, K2, and the training form): query heads sharded over
   ``model`` where the KV heads are not (GQA with fewer KV heads than
-  ranks) need each rank to slice the KV heads its query heads read, and
-  a cache sharded over its sequence axis is gathered first (K1 returns
-  no log-sum-exp to merge partial softmaxes across ranks);
+  ranks) need each rank to slice the KV heads its query heads read; a
+  decode cache sharded over its sequence axis T stays sharded: each
+  rank attends over its own slots (K1's log-sum-exp form) and the
+  partial softmaxes are merged by three small all-reduces, as the
+  reference's compiled step does;
 * in-place writes into a sharded cache (``index_put_``, slice
   assignment), which DTensor refuses when they would move the cache:
   each rank writes the positions that its shard holds;
@@ -289,22 +291,63 @@ def contract(x: Any, w: Any, nc: int, fn: Callable) -> DTensor:
 # --------------------------------------------------------------------- #
 # Attention (K1, K2) on DTensors
 # --------------------------------------------------------------------- #
-def attend(kernel: Callable, q: Any, k: Any, v: Any, *rest: Any) -> Any:
+def merge_partials(o: torch.Tensor, lse: torch.Tensor,
+                   amax: Callable = lambda t: t.amax(0),
+                   asum: Callable = lambda t: t.sum(0)) -> torch.Tensor:
+    """The softmax attention over the union of disjoint key sets, from
+    each set's output ``o`` (..., D), float32, and log-sum-exp ``lse``
+    (...): ``sum w o / sum w`` with ``w = exp(lse - max lse)``.  By
+    default the sets are stacked on dimension 0; ``attend`` passes
+    all-reduces over the mesh dimensions that shard T instead.  A set
+    with no key (lse -1e30) weighs nothing; a row with none in any set
+    gives 0.  -> float32, without the stacked dimension."""
+    w = torch.exp(lse - amax(lse))
+    return asum(w[..., None] * o) / asum(w)[..., None]
+
+
+def _reduce_over(mesh, dims: Sequence[int], op: str) -> Callable:
+    """An all-reduce (``op``: "max", "sum") of a local tensor over the
+    mesh dimensions ``dims``, one after another."""
+    from torch.distributed import _functional_collectives as funcol
+
+    def fn(t: torch.Tensor) -> torch.Tensor:
+        for i in dims:
+            t = funcol.all_reduce(t, op, (mesh, i))
+        return t
+    return fn
+
+
+def attend(kernel: Callable, q: Any, k: Any, v: Any, *rest: Any,
+           partial: Optional[Callable] = None) -> Any:
     """``kernel(q, k, v, *rest)`` for GQA attention with q (B, [S,] H, D)
     and k/v (B, T, Hkv, D), any of them a DTensor; ``rest`` is K1's
     lengths (B,) or K2's Python arguments.
 
     Each mesh dimension keeps q's batch or head sharding; any other
-    placement of q (and every placement of k/v that differs, a cache
-    sharded over T among them) is gathered.  Where the query heads are
-    sharded and the KV heads cannot follow (GQA with fewer KV heads than
-    shards), k/v stay whole on those dimensions and each rank slices the
-    KV heads its query heads read.  The output is placed as q."""
+    placement of q (and every placement of k/v that differs) is
+    gathered, with one exception: given K1's log-sum-exp form
+    ``partial(q, k, v, lengths) -> (o float32, lse)``, a mesh dimension
+    that shards the cache over T keeps it so.  Each
+    rank there attends with every query head over its own slots, its
+    lengths clipped to them (``clamp(lengths - t0, 0, T_local)``; a ring
+    buffer's valid slots are a prefix as well), and the shards are
+    merged by ``merge_partials`` over all-reduces (max of the
+    log-sum-exp, sums of the weighted outputs and of the weights): q is
+    gathered over that dimension, the output replicated on it, in q's
+    dtype.  Where the query heads are sharded and the KV heads cannot
+    follow (GQA with fewer KV heads than shards), k/v stay whole on
+    those dimensions and each rank slices the KV heads its query heads
+    read.  The output is placed as q (replicated where T was split)."""
     mesh = mesh_of(q, k, v)
     qh = len(q.shape) - 2                      # q's head dimension
     H, Hkv = q.shape[qh], k.shape[2]
     rep = H // Hkv
     qpl = placements_of(q, mesh)
+    lengths = rest[:1] if rest and isinstance(rest[0], torch.Tensor) else ()
+    t_dims = [] if partial is None else [
+        i for i in shard_dims(placements_of(k, mesh), 1)
+        if i in shard_dims(placements_of(v, mesh), 1)]
+    qpl = tuple(Replicate() if i in t_dims else p for i, p in enumerate(qpl))
     heads = shard_dims(qpl, qh)
     n_h = math.prod(mesh.shape[i] for i in heads)
     Hl = H // n_h
@@ -313,9 +356,10 @@ def attend(kernel: Callable, q: Any, k: Any, v: Any, *rest: Any) -> Any:
                                   or rep % Hl == 0)):
         heads, n_h, Hl, kv_sharded = [], 1, H, True
     q_to = mapped(qpl, {0: 0, **({qh: qh} if heads else {})})
-    kv_to = mapped(q_to, {0: 0, qh: 2 if kv_sharded else None})
+    kv_to = tuple(Shard(1) if i in t_dims else p for i, p in
+                  enumerate(mapped(q_to, {0: 0, qh: 2 if kv_sharded
+                                          else None})))
     row_to = mapped(q_to, {0: 0})
-    lengths = rest[:1] if rest and isinstance(rest[0], torch.Tensor) else ()
     # k/v whole but sliced on a head-sharded dimension: each rank's
     # gradient is its heads' share of the sum
     kv_grad = tuple(Partial() if i in heads and not kv_sharded else p
@@ -327,12 +371,21 @@ def attend(kernel: Callable, q: Any, k: Any, v: Any, *rest: Any) -> Any:
         h0 = offsets(q if isinstance(q, DTensor)
                      else wrap(q, mesh, qpl, q.shape), q_to)[qh]
 
+    t0 = local_box(k.shape, mesh, kv_to)[1][1]
+
     def fn(ql, kl, vl, *ln):
         if not kv_sharded:                     # the KV heads of h0 .. h0+Hl
             lo = h0 // rep
             hi = lo + max(Hl // rep, 1)
             kl, vl = kl[:, :, lo:hi].contiguous(), vl[:, :, lo:hi].contiguous()
-        return kernel(ql, kl, vl, *ln, *rest[len(lengths):])
+        if not t_dims:
+            return kernel(ql, kl, vl, *ln, *rest[len(lengths):])
+        # this rank's slots t0 .. t0 + T_local of each row's valid prefix
+        n = (ln[0] - t0).clamp(0, kl.shape[1]).to(torch.int32)
+        o, lse = partial(ql, kl, vl, n)
+        return merge_partials(o, lse, _reduce_over(mesh, t_dims, "max"),
+                              _reduce_over(mesh, t_dims, "sum")
+                              ).to(ql.dtype)
     return local_call(fn, mesh, args, [(q_to, q.shape)])
 
 

@@ -23,6 +23,15 @@ def decode(B: int, H: int, Hkv: int, D: int, n_tok: int, es: int) -> Cost:
             float(es * (2 * B * H * D + 2 * n_tok * Hkv * D) + 4 * B))
 
 
+def decode_lse(B: int, H: int, Hkv: int, D: int, n_tok: int,
+               es: int) -> Cost:
+    """K1's log-sum-exp form: K1's work; its output is float32, and it
+    writes a float32 log-sum-exp per (row, query head)."""
+    return (4.0 * n_tok * H * D,
+            float(es * (B * H * D + 2 * n_tok * Hkv * D)
+                  + 4 * B * H * D + 4 * B * H + 4 * B))
+
+
 def prefill_pairs(Sq: int, Skv: int, q_offset: int = 0,
                   window: Optional[int] = None, causal: bool = True) -> int:
     """The (query, key) pairs K2's mask leaves, per row and head: query i

@@ -50,7 +50,15 @@
  *    the ragged tail tile is zero-filled and masked, so T needs no
  *    divisibility.  A sliding-window ring buffer needs nothing here: the
  *    caller passes min(pos + 1, capacity), and slot order does not matter
- *    because RoPE was applied before the cache write.
+ *    because RoPE was applied before the cache write.  A row of length 0
+ *    (a shard of the cache that holds none of the row's tokens) gives
+ *    o = 0;
+ *  - the log-sum-exp form (a cache sharded over T: each shard attends
+ *    over its own tokens and the caller merges the shards) is a second
+ *    pair of kernels, decode_*_lse_kernel, over the same body (template
+ *    flag LSE): the output is float32, unrounded, and lse = m + log(l)
+ *    of the merged (max, sum) of each (row, query head), -1e30 for a row
+ *    of length 0.  The kernels without it are the same code as before.
  * No host sync and no allocation: the wrapper allocates the partials and
  * keeps the zeroed counters.
  */
@@ -58,6 +66,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "../../csrc/mma.cuh"
 
@@ -100,16 +110,23 @@ __device__ __forceinline__ void store(bf16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// The log-sum-exp of a softmax whose max is m and sum l (NEG where the
+// row saw no token).
+__device__ __forceinline__ float log_sum_exp(float m, float l) {
+  return l > 0.f ? m + logf(l) : NEG;
+}
+
 // The block's split of (row b, KV head hk) is in shared memory: acc_s
 // (rep x D, unnormalised), m_s and l_s (rep).  With one split, write the
 // output.  Otherwise write the partial, take a ticket, and if this block
 // is the last of its (row, KV head), merge every split's partial into the
 // output and reset the ticket.  wsm: rep x MAX_SPLIT floats of scratch,
-// lsum: rep floats.  Every thread of the block calls it.
-template <int D, typename T>
+// lsum: rep floats.  LSE: also write each query head's log-sum-exp to lse
+// (B, H).  Every thread of the block calls it.
+template <int D, bool LSE, typename T>
 __device__ void finish(const float* acc_s, const float* m_s,
                        const float* l_s, float* wsm, float* lsum, int rep,
-                       T* o, float* __restrict__ part_acc,
+                       T* o, float* lse, float* __restrict__ part_acc,
                        float* __restrict__ part_ml, int* tickets, int H,
                        int Hkv, int nsplit) {
   __shared__ int last;
@@ -121,6 +138,9 @@ __device__ void finish(const float* acc_s, const float* m_s,
     for (int i = tid; i < rep * D; i += THREADS) {
       const float l = l_s[i / D];
       store(ob + i, l > 0.f ? acc_s[i] / l : 0.f);
+    }
+    if constexpr (LSE) {
+      if (tid < rep) lse[bh0 + tid] = log_sum_exp(m_s[tid], l_s[tid]);
     }
     return;
   }
@@ -151,6 +171,7 @@ __device__ void finish(const float* acc_s, const float* m_s,
       L = fmaf(__ldcg(ml + 2 * s + 1), w, L);
     }
     lsum[tid] = L;
+    if constexpr (LSE) lse[bh0 + tid] = log_sum_exp(M, L);
   }
   __syncthreads();
   for (int i = tid; i < rep * D; i += THREADS) {
@@ -184,15 +205,16 @@ struct MmaSmem {
   static constexpr size_t bytes = ring > epilogue ? ring : epilogue;
 };
 
-// CAP: the logits are capped, cap_in = scale / cap, cap = the softcap
-template <int D, bool CAP>
-__global__ void __launch_bounds__(THREADS)
-    decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const int* __restrict__ lengths, bf16* o,
-                      float* part_acc, float* part_ml, int* tickets,
-                      int t_cap, int H, int Hkv, int nsplit, float scale,
-                      float cap_in, float cap) {
+// CAP: the logits are capped, cap_in = scale / cap, cap = the softcap.
+// LSE: o is float32 and lse (B, H) takes each query head's log-sum-exp;
+// else o is bf16 and lse is unused.
+template <int D, bool CAP, bool LSE>
+__device__ __forceinline__ void decode_mma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const int* __restrict__ lengths,
+    typename std::conditional<LSE, float, bf16>::type* o, float* lse,
+    float* part_acc, float* part_ml, int* tickets, int t_cap, int H,
+    int Hkv, int nsplit, float scale, float cap_in, float cap) {
   constexpr int DP = MmaSmem<D>::DP;
   constexpr int KS = D / 16;  // k-steps of QK^T
   constexpr int NT = D / 8;   // n-tiles of PV (even at D = 64, 112, 128, 256)
@@ -414,8 +436,35 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
   __syncthreads();
-  finish<D>(acc_s, m_s, l_s, wsm, lsum, rep, o, part_acc, part_ml, tickets,
-            H, Hkv, nsplit);
+  finish<D, LSE>(acc_s, m_s, l_s, wsm, lsum, rep, o, lse, part_acc, part_ml,
+                 tickets, H, Hkv, nsplit);
+}
+
+template <int D, bool CAP>
+__global__ void __launch_bounds__(THREADS)
+    decode_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const int* __restrict__ lengths, bf16* o,
+                      float* part_acc, float* part_ml, int* tickets,
+                      int t_cap, int H, int Hkv, int nsplit, float scale,
+                      float cap_in, float cap) {
+  decode_mma<D, CAP, false>(q, k, v, lengths, o, nullptr, part_acc, part_ml,
+                            tickets, t_cap, H, Hkv, nsplit, scale, cap_in,
+                            cap);
+}
+
+template <int D, bool CAP>
+__global__ void __launch_bounds__(THREADS)
+    decode_mma_lse_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const int* __restrict__ lengths, float* o,
+                          float* lse, float* part_acc, float* part_ml,
+                          int* tickets, int t_cap, int H, int Hkv,
+                          int nsplit, float scale, float cap_in, float cap) {
+  decode_mma<D, CAP, true>(q, k, v, lengths, o, lse, part_acc, part_ml,
+                           tickets, t_cap, H, Hkv, nsplit, scale, cap_in,
+                           cap);
 }
 
 // ------------------------------------------------------------------ //
@@ -430,16 +479,14 @@ constexpr size_t fma_smem_bytes() {
 // Thread t owns output channels t, t + THREADS, ... below D (one up to
 // D 128, two at D 256); K rows are padded to D + 1 floats for
 // conflict-free reads.
-// CAP: the pre-scaled logits are capped, tanhf(s / cap) * cap
-template <int D, bool CAP>
-__global__ void __launch_bounds__(THREADS)
-    decode_fma_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const int* __restrict__ lengths, float* o,
-                      float* part_acc, float* part_ml, int* tickets,
-                      int t_cap, int H, int Hkv, int nsplit, float scale,
-                      float cap) {
+// CAP: the pre-scaled logits are capped, tanhf(s / cap) * cap.
+// LSE: lse (B, H) takes each query head's log-sum-exp.
+template <int D, bool CAP, bool LSE>
+__device__ __forceinline__ void decode_fma(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const int* __restrict__ lengths, float* o,
+    float* lse, float* part_acc, float* part_ml, int* tickets, int t_cap,
+    int H, int Hkv, int nsplit, float scale, float cap) {
   constexpr int DP = D + 1;
   extern __shared__ __align__(16) float smem[];
   const int rep = H / Hkv;
@@ -587,37 +634,91 @@ __global__ void __launch_bounds__(THREADS)
         if (h < rep) acc_s[h * D + tid + j * THREADS] = acc[j][h];
   }
   __syncthreads();
-  finish<D>(acc_s, ms, ls, wsm, as, rep, o, part_acc, part_ml, tickets, H,
-            Hkv, nsplit);
+  finish<D, LSE>(acc_s, ms, ls, wsm, as, rep, o, lse, part_acc, part_ml,
+                 tickets, H, Hkv, nsplit);
 }
 
 template <int D, bool CAP>
+__global__ void __launch_bounds__(THREADS)
+    decode_fma_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const int* __restrict__ lengths, float* o,
+                      float* part_acc, float* part_ml, int* tickets,
+                      int t_cap, int H, int Hkv, int nsplit, float scale,
+                      float cap) {
+  decode_fma<D, CAP, false>(q, k, v, lengths, o, nullptr, part_acc, part_ml,
+                            tickets, t_cap, H, Hkv, nsplit, scale, cap);
+}
+
+// At least two blocks an SM: ptxas then lets the body keep its LSE
+// epilogue in registers (at D 112 with the cap, by the default budget,
+// it spilled 8 bytes); the kernel without it keeps its default.
+template <int D, bool CAP>
+__global__ void __launch_bounds__(THREADS, 2)
+    decode_fma_lse_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const int* __restrict__ lengths, float* o,
+                          float* lse, float* part_acc, float* part_ml,
+                          int* tickets, int t_cap, int H, int Hkv,
+                          int nsplit, float scale, float cap) {
+  decode_fma<D, CAP, true>(q, k, v, lengths, o, lse, part_acc, part_ml,
+                           tickets, t_cap, H, Hkv, nsplit, scale, cap);
+}
+
+// lse null: the kernels without the log-sum-exp (o in the input dtype);
+// else the LSE kernels (o float32)
+template <int D, bool CAP>
 int launch(int dtype, const void* q, const void* k, const void* v,
-           const void* lengths, void* o, void* part_acc, void* part_ml,
-           void* tickets, int B, int t_cap, int H, int Hkv, int nsplit,
-           float scale, float cap, cudaStream_t s) {
+           const void* lengths, void* o, void* lse, void* part_acc,
+           void* part_ml, void* tickets, int B, int t_cap, int H, int Hkv,
+           int nsplit, float scale, float cap, cudaStream_t s) {
   const dim3 grid(Hkv, B, nsplit);
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
+  float* ls = static_cast<float*>(lse);
   int* tk = static_cast<int*>(tickets);
   const int* lens = static_cast<const int*>(lengths);
   cudaError_t err;
   if (dtype == 1) {
     constexpr size_t smem = MmaSmem<D>::bytes;
-    err = mma::opt_in<decode_mma_kernel<D, CAP>>(smem);
-    if (err != cudaSuccess) return (int)err;
-    decode_mma_kernel<D, CAP><<<grid, THREADS, smem, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), lens, static_cast<bf16*>(o), pa, pm, tk,
-        t_cap, H, Hkv, nsplit, scale, CAP ? scale / cap : 0.f, cap);
+    const bf16* qb = static_cast<const bf16*>(q);
+    const bf16* kb = static_cast<const bf16*>(k);
+    const bf16* vb = static_cast<const bf16*>(v);
+    const float cap_in = CAP ? scale / cap : 0.f;
+    if (ls) {
+      err = mma::opt_in<decode_mma_lse_kernel<D, CAP>>(smem);
+      if (err != cudaSuccess) return (int)err;
+      decode_mma_lse_kernel<D, CAP><<<grid, THREADS, smem, s>>>(
+          qb, kb, vb, lens, static_cast<float*>(o), ls, pa, pm, tk, t_cap, H,
+          Hkv, nsplit, scale, cap_in, cap);
+    } else {
+      err = mma::opt_in<decode_mma_kernel<D, CAP>>(smem);
+      if (err != cudaSuccess) return (int)err;
+      decode_mma_kernel<D, CAP><<<grid, THREADS, smem, s>>>(
+          qb, kb, vb, lens, static_cast<bf16*>(o), pa, pm, tk, t_cap, H, Hkv,
+          nsplit, scale, cap_in, cap);
+    }
   } else if (dtype == 0) {
     constexpr size_t smem = fma_smem_bytes<D>();
-    err = mma::opt_in<decode_fma_kernel<D, CAP>>(smem);
-    if (err != cudaSuccess) return (int)err;
-    decode_fma_kernel<D, CAP><<<grid, THREADS, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), lens, static_cast<float*>(o), pa, pm,
-        tk, t_cap, H, Hkv, nsplit, scale, cap);
+    const float* qf = static_cast<const float*>(q);
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    float* of = static_cast<float*>(o);
+    if (ls) {
+      err = mma::opt_in<decode_fma_lse_kernel<D, CAP>>(smem);
+      if (err != cudaSuccess) return (int)err;
+      decode_fma_lse_kernel<D, CAP><<<grid, THREADS, smem, s>>>(
+          qf, kf, vf, lens, of, ls, pa, pm, tk, t_cap, H, Hkv, nsplit, scale,
+          cap);
+    } else {
+      err = mma::opt_in<decode_fma_kernel<D, CAP>>(smem);
+      if (err != cudaSuccess) return (int)err;
+      decode_fma_kernel<D, CAP><<<grid, THREADS, smem, s>>>(
+          qf, kf, vf, lens, of, pa, pm, tk, t_cap, H, Hkv, nsplit, scale,
+          cap);
+    }
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -627,28 +728,31 @@ int launch(int dtype, const void* q, const void* k, const void* v,
 // the instantiation without (softcap 0) or with the cap
 template <int D>
 int launch_cap(int dtype, const void* q, const void* k, const void* v,
-               const void* lengths, void* o, void* part_acc, void* part_ml,
-               void* tickets, int B, int t_cap, int H, int Hkv, int nsplit,
-               float scale, float softcap, cudaStream_t s) {
+               const void* lengths, void* o, void* lse, void* part_acc,
+               void* part_ml, void* tickets, int B, int t_cap, int H,
+               int Hkv, int nsplit, float scale, float softcap,
+               cudaStream_t s) {
   if (softcap > 0.f)
-    return launch<D, true>(dtype, q, k, v, lengths, o, part_acc, part_ml,
-                           tickets, B, t_cap, H, Hkv, nsplit, scale, softcap,
-                           s);
-  return launch<D, false>(dtype, q, k, v, lengths, o, part_acc, part_ml,
+    return launch<D, true>(dtype, q, k, v, lengths, o, lse, part_acc,
+                           part_ml, tickets, B, t_cap, H, Hkv, nsplit, scale,
+                           softcap, s);
+  return launch<D, false>(dtype, q, k, v, lengths, o, lse, part_acc, part_ml,
                           tickets, B, t_cap, H, Hkv, nsplit, scale, 0.f, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; head_dim: 64, 112, 128 or 256; rep = H /
-// Hkv <= 16; 1 <= nsplit <= 64.  part_acc: float32 (B, H, nsplit,
-// head_dim) and part_ml: float32 (B, H, nsplit, 2), scratch; tickets:
-// int32 (B, Hkv), zero before the call and zero after it.  softcap: 0 for
-// none, else > 0 (the scaled logits become softcap * tanh(logit /
-// softcap)).  Returns the cudaError_t of the launch.
+// Hkv <= 16; 1 <= nsplit <= 64.  o: (B, H, head_dim), in dtype, or float32
+// when lse is given; lse: null, or float32 (B, H), each query head's
+// log-sum-exp (-1e30 for a row of length 0).  part_acc: float32 (B, H,
+// nsplit, head_dim) and part_ml: float32 (B, H, nsplit, 2), scratch;
+// tickets: int32 (B, Hkv), zero before the call and zero after it.
+// softcap: 0 for none, else > 0 (the scaled logits become softcap *
+// tanh(logit / softcap)).  Returns the cudaError_t of the launch.
 extern "C" int fa_decode(int dtype, int head_dim, const void* q,
                          const void* k, const void* v, const void* lengths,
-                         void* o, void* part_acc, void* part_ml,
+                         void* o, void* lse, void* part_acc, void* part_ml,
                          void* tickets, int B, int t_cap, int H, int Hkv,
                          int nsplit, float scale, float softcap,
                          void* stream) {
@@ -657,20 +761,21 @@ extern "C" int fa_decode(int dtype, int head_dim, const void* q,
       H / Hkv > MAX_REP || !(softcap >= 0.f))
     return (int)cudaErrorInvalidValue;
   if (head_dim == 64)
-    return launch_cap<64>(dtype, q, k, v, lengths, o, part_acc, part_ml,
-                          tickets, B, t_cap, H, Hkv, nsplit, scale, softcap, s);
+    return launch_cap<64>(dtype, q, k, v, lengths, o, lse, part_acc, part_ml,
+                          tickets, B, t_cap, H, Hkv, nsplit, scale, softcap,
+                          s);
   if (head_dim == 112)
-    return launch_cap<112>(dtype, q, k, v, lengths, o, part_acc, part_ml,
-                           tickets, B, t_cap, H, Hkv, nsplit, scale, softcap,
-                           s);
+    return launch_cap<112>(dtype, q, k, v, lengths, o, lse, part_acc, part_ml,
+                          tickets, B, t_cap, H, Hkv, nsplit, scale, softcap,
+                          s);
   if (head_dim == 128)
-    return launch_cap<128>(dtype, q, k, v, lengths, o, part_acc, part_ml,
-                           tickets, B, t_cap, H, Hkv, nsplit, scale, softcap,
-                           s);
+    return launch_cap<128>(dtype, q, k, v, lengths, o, lse, part_acc, part_ml,
+                          tickets, B, t_cap, H, Hkv, nsplit, scale, softcap,
+                          s);
   if (head_dim == 256)
-    return launch_cap<256>(dtype, q, k, v, lengths, o, part_acc, part_ml,
-                           tickets, B, t_cap, H, Hkv, nsplit, scale, softcap,
-                           s);
+    return launch_cap<256>(dtype, q, k, v, lengths, o, lse, part_acc, part_ml,
+                          tickets, B, t_cap, H, Hkv, nsplit, scale, softcap,
+                          s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,6 +10,9 @@ The wrappers check device, dtype, shape and contiguity, allocate the
 output (and K1's split partials) with ``torch.empty``, launch on
 PyTorch's current stream without synchronising, raise if the launch
 returned an error, and add one to ``LAUNCHES[name]`` for each launch.
+K1's log-sum-exp form (``flash_decode_lse``, counted under its own name)
+returns the float32 output and each query head's log-sum-exp, for a
+caller that merges the softmaxes of several shards of the cache.
 K1 merges its splits in the same launch by a per-(row, KV head) ticket:
 its counters are kept zeroed between calls, one buffer per (device,
 stream), so a call makes no allocation that needs initialising and no
@@ -39,7 +42,8 @@ BLOCKS_PER_SM = 1                # K1's split planning target (timed
                                  # best of 0.5-2 on the H100, PERF.md)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in
+                             (*SOURCES, "flash_decode_lse")}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
@@ -67,8 +71,8 @@ def build() -> Dict[str, Path]:
 def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "flash_decode":
-        lib.fa_decode.argtypes = [I, I, P, P, P, P, P, P, P, P, I, I, I, I,
-                                  I, F, F, P]
+        lib.fa_decode.argtypes = [I, I, P, P, P, P, P, P, P, P, P, I, I,
+                                  I, I, I, F, F, P]
         lib.fa_decode.restype = I
         lib.fa_decode_error_string.argtypes = [I]
         lib.fa_decode_error_string.restype = ctypes.c_char_p
@@ -162,31 +166,32 @@ def _tickets(device: torch.device, stream: torch.cuda.Stream,
     return t
 
 
-def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor, *,
-                 softcap: float = 0.0) -> torch.Tensor:
-    """K1.  q: (B, H, D); k/v: one layer of the KV cache, (B, T, Hkv, D);
-    lengths: (B,) int32, the valid KV length of each row; ``softcap`` > 0
-    caps the scaled logits at +-softcap (tanh).  -> (B, H, D)."""
-    softcap = _check_softcap("flash_decode", softcap)
-    _check_common("flash_decode", q, k, v)
+def _decode(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            lengths: torch.Tensor, softcap: float, lse: bool):
+    """K1's checks and launch; with ``lse``, the log-sum-exp form."""
+    softcap = _check_softcap(name, softcap)
+    _check_common(name, q, k, v)
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError("flash_decode: q (B,H,D), k/v (B,T,Hkv,D)")
+        raise ValueError(f"{name}: q (B,H,D), k/v (B,T,Hkv,D)")
     B, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     if k.shape[0] != B or k.shape[3] != D:
-        raise ValueError(f"flash_decode: q {tuple(q.shape)} vs k "
+        raise ValueError(f"{name}: q {tuple(q.shape)} vs k "
                          f"{tuple(k.shape)}")
     if H % Hkv or H // Hkv > MAX_REP:
-        raise ValueError(f"flash_decode: H={H}, Hkv={Hkv} (rep <= {MAX_REP})")
+        raise ValueError(f"{name}: H={H}, Hkv={Hkv} (rep <= {MAX_REP})")
     if lengths.dtype != torch.int32 or lengths.shape != (B,) \
             or lengths.device != q.device or not lengths.is_contiguous():
-        raise ValueError("flash_decode: lengths must be a contiguous (B,) "
+        raise ValueError(f"{name}: lengths must be a contiguous (B,) "
                          "int32 tensor on q's device")
-    _check_aligned("flash_decode", q, k, v)
+    _check_aligned(name, q, k, v)
     lib = _lib("flash_decode")
     nsplit = decode_splits(B, Hkv, T, _sm_count(q.device.index))
-    o = torch.empty_like(q)
+    if lse:
+        o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    else:
+        o, m = torch.empty_like(q), None
     part_acc = torch.empty((B, H, nsplit, D), dtype=torch.float32,
                            device=q.device)
     part_ml = torch.empty((B, H, nsplit, 2), dtype=torch.float32,
@@ -197,12 +202,33 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = current.cuda_stream
         err = lib.fa_decode(_DTYPES[q.dtype], D, q.data_ptr(), k.data_ptr(),
                             v.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+                            None if m is None else m.data_ptr(),
                             part_acc.data_ptr(), part_ml.data_ptr(),
                             tickets.data_ptr(), B, T, H, Hkv, nsplit,
                             1.0 / math.sqrt(D), softcap, stream)
-    nvcc.raise_on("flash_decode", lib.fa_decode_error_string, err)
-    LAUNCHES["flash_decode"] += 1
-    return o
+    nvcc.raise_on(name, lib.fa_decode_error_string, err)
+    LAUNCHES[name] += 1
+    return o if m is None else (o, m)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lengths: torch.Tensor, *,
+                 softcap: float = 0.0) -> torch.Tensor:
+    """K1.  q: (B, H, D); k/v: one layer of the KV cache, (B, T, Hkv, D);
+    lengths: (B,) int32, the valid KV length of each row (0 gives a zero
+    output); ``softcap`` > 0 caps the scaled logits at +-softcap (tanh).
+    -> (B, H, D)."""
+    return _decode("flash_decode", q, k, v, lengths, softcap, False)
+
+
+def flash_decode_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, *, softcap: float = 0.0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's log-sum-exp form, as ``flash_decode`` takes its arguments.
+    -> (o (B, H, D) float32, lse (B, H) float32): the softmax's
+    log-sum-exp of each (row, query head) over its valid keys, -1e30 for
+    a row of length 0 (whose o is 0)."""
+    return _decode("flash_decode_lse", q, k, v, lengths, softcap, True)
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,5 +1,6 @@
-"""Flash attention as two custom ops, ``repro_torch::flash_decode`` (K1)
-and ``repro_torch::flash_prefill`` (K2): a CPU tensor takes the plain
+"""Flash attention as custom ops, ``repro_torch::flash_decode`` (K1),
+its log-sum-exp form ``repro_torch::flash_decode_lse`` and
+``repro_torch::flash_prefill`` (K2): a CPU tensor takes the plain
 PyTorch version (``ref``), any other tensor the hand-written kernel
 (``kernel``), which raises on what it does not take.  There is no
 fallback from the kernel to the plain version."""
@@ -22,6 +23,10 @@ def _decode_kernel(q, k, v, lengths, softcap=0.0):
     return kernel.flash_decode(q, k, v, lengths, softcap=softcap)
 
 
+def _decode_lse_kernel(q, k, v, lengths, softcap=0.0):
+    return kernel.flash_decode_lse(q, k, v, lengths, softcap=softcap)
+
+
 def _prefill_kernel(q, k, v, q_offset, window, causal=True, softcap=0.0):
     return kernel.flash_prefill(q, k, v, q_offset=q_offset, window=window,
                                 causal=causal, softcap=softcap)
@@ -38,8 +43,20 @@ def _decode_plain(q, k, v, lengths, softcap=0.0):
     return ref.decode_attention(q, k, v, lengths, softcap).contiguous()
 
 
+def _decode_lse_plain(q, k, v, lengths, softcap=0.0):
+    o, lse = ref.decode_attention_lse(q, k, v, lengths, softcap)
+    return o.contiguous(), lse.contiguous()
+
+
 def _like_q(q, *_):
     return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def _lse_like(q, *_):
+    """The log-sum-exp form's outputs: o (B, H, D) and lse (B, H),
+    float32."""
+    return (q.new_empty(q.shape, dtype=torch.float32),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
 
 
 def _kv_heads_split(q, k) -> bool:
@@ -74,6 +91,12 @@ FLASH_DECODE = library.define(
     "flash_decode(Tensor q, Tensor k, Tensor v, Tensor lengths,"
     " float softcap=0.0) -> Tensor",
     _decode_kernel, _decode_plain, _like_q, _decode_sharding)
+# the log-sum-exp form runs on each rank's shards of a cache sharded over
+# T (``distributed.local.attend``), never on DTensors: no strategy
+FLASH_DECODE_LSE = library.define(
+    "flash_decode_lse(Tensor q, Tensor k, Tensor v, Tensor lengths,"
+    " float softcap=0.0) -> (Tensor, Tensor)",
+    _decode_lse_kernel, _decode_lse_plain, _lse_like)
 FLASH_PREFILL = library.define(
     "flash_prefill(Tensor q, Tensor k, Tensor v, int q_offset, int? window,"
     " bool causal=True, float softcap=0.0) -> Tensor", _prefill_kernel,
@@ -88,6 +111,13 @@ def _decode_flops(q, k, v, lengths, softcap=0.0, *, out_shape=None,
     # a trace sees shapes only: every row's whole cache
     B, H, D = q
     return cost.decode(B, H, k[2], D, B * k[1], 2)[0]
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_decode_lse)
+def _decode_lse_flops(q, k, v, lengths, softcap=0.0, *, out_shape=None,
+                      **kw) -> float:
+    B, H, D = q
+    return cost.decode_lse(B, H, k[2], D, B * k[1], 2)[0]
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_prefill)
@@ -116,3 +146,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """One-token GQA decode, with a logit ``softcap`` > 0.  q: (B, H, D);
     k/v: (B, T, Hkv, D); lengths: (B,) int32."""
     return FLASH_DECODE(q, k, v, lengths, float(softcap))
+
+
+def decode_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor, softcap: float = 0.0):
+    """``decode_attention`` over one shard of the cache, with its
+    softmax's log-sum-exp: (o (B, H, D) float32, lse (B, H) float32); a
+    row of length 0 gives o = 0 and lse = -1e30."""
+    return FLASH_DECODE_LSE(q, k, v, lengths, float(softcap))

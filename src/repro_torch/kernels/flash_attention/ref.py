@@ -61,21 +61,44 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(B, Sq, H, D).to(v.dtype)
 
 
+def _decode_logits(q: torch.Tensor, k: torch.Tensor, lengths: torch.Tensor,
+                   softcap: float) -> torch.Tensor:
+    """The scaled, capped and masked fp32 logits (B, Hkv, rep, T) of a
+    decode step."""
+    B, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    qg = (q * (1.0 / math.sqrt(D))).reshape(B, Hkv, H // Hkv, D)
+    logits = _capped(torch.einsum("bhrd,bkhd->bhrk", qg.float(), k.float()),
+                     softcap)
+    valid = torch.arange(T, device=q.device)[None, :] \
+        < lengths.to(q.device)[:, None]                      # (B, T)
+    return logits.masked_fill(~valid[:, None, None, :], NEG_INF)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor,
                      softcap: float = 0.0) -> torch.Tensor:
     """One-token GQA attention over a KV cache.  q: (B, H, D); k/v: the
     cache of one layer, (B, T, Hkv, D); lengths: (B,) valid KV length
     per row (``pos + 1``).  Returns (B, H, D)."""
+    w = torch.softmax(_decode_logits(q, k, lengths, softcap), dim=-1)
+    o = torch.einsum("bhrk,bkhd->bhrd", w.to(v.dtype).float(), v.float())
+    return o.reshape(q.shape).to(v.dtype)
+
+
+def decode_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor, softcap: float = 0.0):
+    """``decode_attention`` and its softmax's log-sum-exp, for a caller
+    that merges several shards of the cache: (o (B, H, D) float32, never
+    rounded to the value dtype; lse (B, H) float32).  A row of length 0
+    (a shard holding none of its tokens) gives o = 0 and lse =
+    ``NEG_INF``."""
     B, H, D = q.shape
-    T, Hkv = k.shape[1], k.shape[2]
-    rep = H // Hkv
-    qg = (q * (1.0 / math.sqrt(D))).reshape(B, Hkv, rep, D)
-    logits = _capped(torch.einsum("bhrd,bkhd->bhrk", qg.float(), k.float()),
-                     softcap)
-    valid = torch.arange(T, device=q.device)[None, :] \
-        < lengths.to(q.device)[:, None]                      # (B, T)
-    logits = logits.masked_fill(~valid[:, None, None, :], NEG_INF)
+    logits = _decode_logits(q, k, lengths, softcap)
+    lse = torch.logsumexp(logits, dim=-1)                   # (B, Hkv, rep)
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhrk,bkhd->bhrd", w.to(v.dtype).float(), v.float())
-    return o.reshape(B, H, D).to(v.dtype)
+    empty = (lengths.to(q.device) <= 0)[:, None, None]
+    o = torch.where(empty[..., None], torch.zeros_like(o), o)
+    lse = torch.where(empty, torch.full_like(lse, NEG_INF), lse)
+    return o.reshape(B, H, D), lse.reshape(B, H)

@@ -213,11 +213,15 @@ def _prefill_attn(q, k, v, *, q_offset: int, window: Optional[int],
 
 def _decode_attn(q, k, v, lengths, *, softcap: float = 0.0) -> torch.Tensor:
     """K1; on DTensors each rank's call on its shards, a cache sharded
-    over T gathered first (``distributed.local.attend``)."""
+    over T attended shard by shard through K1's log-sum-exp form and
+    merged (``distributed.local.attend``)."""
     def kernel(a, b, c, n):
         return FA.decode_attention(a, b, c, n, softcap=softcap)
+
+    def partial(a, b, c, n):
+        return FA.decode_attention_lse(a, b, c, n, softcap=softcap)
     if LD.is_dtensor(q, k, v, lengths):
-        return LD.attend(kernel, q, k, v, lengths)
+        return LD.attend(kernel, q, k, v, lengths, partial=partial)
     return kernel(q, k, v, lengths)
 
 
