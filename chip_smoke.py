@@ -52,6 +52,22 @@ Phases; any failure raises and the script exits non-zero:
               and K2 (and the D-256 chunk) with the cap timed in bf16
               beside the plain version, flex_attention with a softcap
               score_mod, SDPA without a cap and the kernel without it;
+     graph    the engine's decode step as one CUDA graph, for llama3-8b,
+              gpt-oss-20b, rwkv6-3b, zamba2-7b and gemma-2b (without and
+              with the logit softcap) at full width and GRAPH_LAYERS
+              layers in bf16: the serve phase's 8 requests, all at 0, on
+              4 slots (admissions between steps), served by an engine
+              that captures the step once and replays it, and by one
+              forced eager by an identity ``decode_fn``: identical greedy
+              tokens, one capture and a replay for every later step, the
+              same kernels run on the card on both paths (K1, K3, K4 per
+              step; a replay's from a device trace of the graph's first
+              replay, which must hold the kernels the capture recorded),
+              no host sync in a step or a replay, and each sync window's
+              columns distinct tensors; every later engine of the script
+              captures its step too, and its launch counts are counted
+              the same way (a capture's recorded calls left out, each
+              replay's kernels from its graph's device trace);
   3. llama    full-width llama3-8b in bf16 (random weights from a seeded
               generator): one right-padded prefill and 8 decode steps
               through the kernels, each step under
@@ -267,6 +283,11 @@ N_REQUESTS, MAX_NEW, RATE = 8, 32, 20.0
 # greedy identity of the engines
 KV_BLOCK, KV_POOL, PREFILL_CHUNK = 64, 48, 128
 IDENTITY_LAYERS = 4
+# the "graph" phase's models and their depth (zamba2-7b: two groups of
+# three Mamba2 layers, each closed by the shared attention block)
+GRAPH_ARCHS = ("llama3_8b", "gpt_oss_20b", "rwkv6_3b", "zamba2_7b",
+               "gemma_2b")
+GRAPH_LAYERS = 6
 # K2 at one chunk of a chunked llama3-8b admission: the last 128-token
 # chunk of a 512-token prompt
 CHUNK_SQ, CHUNK_OFFSET = 128, 384
@@ -1729,13 +1750,101 @@ def attention_sites(k, sites):
         yield
 
 
+# What the engines' CUDA graphs of the decode step run on the card
+# (count_graph_launches): a capture calls each kernel's wrapper, which
+# counts a launch, but runs nothing; a replay runs the captured kernels
+# and calls no wrapper.  counts() takes the first out and puts the second
+# in, each replay's from a device trace of its graph's first replay.
+RECORDED: collections.Counter = collections.Counter()
+REPLAYED: collections.Counter = collections.Counter()
+
+
 def counts(k) -> dict:
-    return {n: v for m in k.kernels for n, v in m.LAUNCHES.items()}
+    return {n: v - RECORDED[n] + REPLAYED[n]
+            for m in k.kernels for n, v in m.LAUNCHES.items()}
 
 
 def reset_counts(k) -> None:
     for m in k.kernels:
         m.reset_launch_counts()
+    RECORDED.clear()
+    REPLAYED.clear()
+
+
+def card_kernel(name: str):
+    """The launch counter of one of the port's kernels, from its name in
+    a device trace (``decode_mma_kernel<128, false>``, ...), or None."""
+    if "decode_" in name and "lse_kernel" in name:
+        return "flash_decode_lse"
+    for tag, counter in (("decode_", "flash_decode"),
+                         ("prefill_", "flash_prefill"), ("gmm_", "gmm"),
+                         ("wkv_", "wkv"), ("ssd_", "ssd")):
+        if tag in name and "_kernel" in name:
+            return counter
+    return None
+
+
+def traced_kernels(fn) -> collections.Counter:
+    """Run ``fn()`` under torch.profiler's CUDA activity and count the
+    port's kernels the card ran, by launch counter.  The sync debug mode
+    in force stays on for ``fn`` alone (the profiler's own stop waits for
+    the card)."""
+    from torch.profiler import ProfilerActivity, profile
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode(mode)
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    ran = collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            c = card_kernel(e.name())
+            if c is not None:
+                ran[c] += 1
+    return ran
+
+
+def count_graph_launches(k) -> None:
+    """From here on, every engine's CUDA graph is counted by what it runs
+    on the card: the wrappers' calls while it records go to RECORDED;
+    its first replay runs under a device trace, whose kernels must be
+    the recorded ones, and each replay adds them to REPLAYED."""
+    from repro_torch.serving.engine import ServingEngine
+    record, replay = ServingEngine._record, ServingEngine._replay
+
+    def recorded(self, side):
+        before = {n: v for m in k.kernels for n, v in m.LAUNCHES.items()}
+        record(self, side)
+        calls = collections.Counter({
+            n: v - before[n] for m in k.kernels
+            for n, v in m.LAUNCHES.items() if v != before[n]})
+        RECORDED.update(calls)
+        self._smoke_graph = (calls, None)
+
+    def replayed(self):
+        calls, ran = self._smoke_graph
+        if ran is None:
+            out = []
+            ran = traced_kernels(lambda: out.append(replay(self)))
+            if ran != calls:
+                raise AssertionError(
+                    f"{self.cfg.name}: a replay of the decode step's graph "
+                    f"ran {dict(ran)} on the card, the capture recorded "
+                    f"{dict(calls)}")
+            self._smoke_graph = (calls, ran)
+            out = out[0]
+        else:
+            out = replay(self)
+        REPLAYED.update(ran)
+        return out
+    ServingEngine._record, ServingEngine._replay = recorded, replayed
 
 
 def expected_launches(cfg, steps: int, admissions: int,
@@ -2047,16 +2156,109 @@ def paged_requests(cfg):
 
 def no_sync_steps(engine) -> None:
     """Run each of ``engine``'s decode steps (decode, sampling and
-    termination) under set_sync_debug_mode("error"): a host sync raises."""
-    fused = engine._step_fused
+    termination; eager, or a replay of its CUDA graph) under
+    set_sync_debug_mode("error"): a host sync raises."""
+    def guarded(fn):
+        def run():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+    engine._step_fused = guarded(engine._step_fused)
+    engine._replay = guarded(engine._replay)
 
-    def guarded():
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return fused()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    engine._step_fused = guarded
+
+def distinct_columns(engine) -> None:
+    """Check at each of ``engine``'s syncs that the window's columns are
+    distinct tensors (a replay's output is copied, never appended)."""
+    settle = engine._settle
+
+    def checked(now):
+        ptrs = [c.untyped_storage().data_ptr() for c in engine._cols]
+        if len(set(ptrs)) != len(ptrs):
+            raise AssertionError(f"a sync window's {len(ptrs)} columns "
+                                 "share storage")
+        settle(now)
+    engine._settle = checked
+
+
+def phase_graph(configs, k) -> None:
+    """GRAPH_ARCHS at full width, GRAPH_LAYERS layers, bf16 (gemma-2b
+    without and with the logit softcap, on the same weights): the serve
+    phase's trace requests, all arriving at 0 (so admissions fall between
+    decode steps as requests finish, in the same order on every run),
+    served by the engine as it runs the step (captured at the first step,
+    replayed after) and by one forced eager by an identity ``decode_fn``.
+    Greedy tokens, decode steps, admissions and the kernels run on the
+    card (count_graph_launches: a replay's from its device trace) must be
+    identical, the graph engine must have captured once and replayed
+    every later step, and neither may make a host sync in a step or a
+    replay."""
+    for name in GRAPH_ARCHS:
+        cfg = dataclasses.replace(configs.get(name), num_layers=GRAPH_LAYERS)
+        params = init_params(k.M, cfg)
+        graph_against_eager(cfg, params, k)
+        if name == GEMMA_ARCH:
+            graph_against_eager(dataclasses.replace(
+                cfg, attn_logit_softcap=GEMMA_SOFTCAP), params, k)
+        free(params)
+
+
+def graph_against_eager(cfg, params, k) -> None:
+    """One model of phase_graph: its graph run against its eager run
+    (phase_graph says what must hold)."""
+    from repro_torch.serving.engine import requests_from_trace
+    from repro_torch.serving.workload import make_trace
+    M = k.M
+    what = cfg.name + (f" softcap {cfg.attn_logit_softcap}"
+                       if cfg.attn_logit_softcap else "")
+
+    def eager(p, c, t, pos):
+        return M.decode_step(p, cfg, t, c, pos)
+    runs = {}
+    for label, knobs in (("graph", {}), ("eager", {"decode_fn": eager})):
+        reqs = requests_from_trace(
+            make_trace("poisson", RATE, N_REQUESTS, seed=0),
+            cfg.vocab_size, max_prompt=PROMPT, max_new=MAX_NEW,
+            time_scale=0.0)
+        engine, reqs, wall, adm_wall, launches, calls = serve_colocated(
+            cfg, params, k, f"graph phase {label}", reqs=reqs,
+            hook=distinct_columns, **knobs)
+        s = engine.stats.summary()
+        long_adm = sum(1 for n, _, _ in calls if n > 1)
+        expect = expected_launches(cfg, s["decode_steps"],
+                                   s["prefill_batches"], long_adm)
+        if launches != expect:
+            raise AssertionError(f"graph phase {what} {label}: "
+                                 f"launches {launches} vs expected "
+                                 f"{expect}")
+        runs[label] = (s, [r.output for r in reqs], launches)
+        log(f"[graph] {what} {GRAPH_LAYERS} layers {cfg.dtype} "
+            f"{label}: {engine_numbers(s, reqs, wall, adm_wall)}, "
+            f"{s['graph_captures']} capture(s), {s['graph_steps']} "
+            f"replays, launches {launches}")
+    (sg, tg, lg), (se, te, le) = runs["graph"], runs["eager"]
+    same = ("decode_steps", "prefill_batches", "completed")
+    if tg != te or lg != le or any(sg[x] != se[x] for x in same):
+        diff = [i for i, (a, b) in enumerate(zip(tg, te)) if a != b]
+        raise AssertionError(f"graph phase {what}: the graph's run "
+                             f"differs from the eager step's (requests "
+                             f"{diff}, launches {lg} / {le}, stats "
+                             f"{sg} / {se})")
+    if sg["graph_captures"] != 1 \
+            or sg["graph_steps"] != sg["decode_steps"] - 1 \
+            or (se["graph_captures"], se["graph_steps"]) != (0, 0):
+        raise AssertionError(f"graph phase {what}: captures / "
+                             f"replays {sg['graph_captures']} / "
+                             f"{sg['graph_steps']} of "
+                             f"{sg['decode_steps']} steps (eager "
+                             f"{se['graph_captures']} / "
+                             f"{se['graph_steps']})")
+    log(f"[graph] {what}: the graph's greedy tokens, steps and "
+        f"launches equal the eager step's ({len(tg)} requests, "
+        f"{sg['decode_steps']} steps, {sg['graph_steps']} replays)")
 
 
 def check_completed(what, reqs, cfg) -> None:
@@ -4623,6 +4825,9 @@ def main() -> int:
     check_and_time_lse(g, FK, FR)
     check_two_streams(g, FK, FR, WK, WR)
     log_phase("kernels")
+    count_graph_launches(k)
+    phase_graph(configs, k)
+    log_phase("graph")
     launches = {}
 
     def served(cfg, lens, first=None):

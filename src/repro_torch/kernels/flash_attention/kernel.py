@@ -24,7 +24,7 @@ import ctypes
 import functools
 import math
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -46,6 +46,9 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in
                              (*SOURCES, "flash_decode_lse")}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+# buffers a larger one replaced: a CUDA graph captured over one keeps its
+# address, so none is ever freed
+_RETIRED: List[torch.Tensor] = []
 
 
 def reset_launch_counts() -> None:
@@ -157,10 +160,13 @@ def _tickets(device: torch.device, stream: torch.cuda.Stream,
     its counter back to 0), kept from call to call and grown when a call
     needs more.  Launches on one stream run one after another, so they
     may share a buffer; launches on two streams may overlap, so each
-    stream has its own."""
+    stream has its own.  A buffer replaced by a larger one is kept
+    alive (``_RETIRED``), since a captured graph may still launch on it."""
     key = (device, stream.stream_id)
     t = _TICKETS.get(key)
     if t is None or t.numel() < n:
+        if t is not None:
+            _RETIRED.append(t)
         t = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
         _TICKETS[key] = t
     return t

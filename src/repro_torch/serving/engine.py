@@ -20,6 +20,11 @@
   * greedy (argmax, int32) or temperature sampling from a
     ``torch.Generator`` on the engine's device,
   * TTFT is stamped only after the device has finished the prefill,
+  * on a CUDA device, with the model's own decode step and greedy
+    sampling over a plain (not DTensor) cache and no device mesh, the
+    whole fused step runs as one CUDA graph: the first such step runs
+    eagerly and captures it, each later one replays it
+    (``graph_captures`` / ``graph_steps``),
   * paged KV residency (``kv_block_tokens``, ``kv_pool_blocks``, ``spill``,
     ``preempt_priority``; ``serving/kvpool.py``): sessions reserve blocks
     of a shared pool, not slots, so more sessions are resident than there
@@ -58,6 +63,7 @@ late (``sync_every=1`` gives per-token accounting).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -65,6 +71,8 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, default_generator, resolve_device
+from repro_torch.distributed import local as LD
+from repro_torch.distributed.context import current_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -112,6 +120,8 @@ class EngineStats:
     decode_steps: int = 0
     host_syncs: int = 0
     prefill_batches: int = 0
+    graph_captures: int = 0             # CUDA graphs of the decode step
+    graph_steps: int = 0                # decode steps run as a replay
     # running sums over the completed requests (``completed`` of them)
     ttft_sum: float = 0.0
     tpot_sum: float = 0.0
@@ -124,6 +134,8 @@ class EngineStats:
             "decode_steps": self.decode_steps,
             "host_syncs": self.host_syncs,
             "prefill_batches": self.prefill_batches,
+            "graph_captures": self.graph_captures,
+            "graph_steps": self.graph_steps,
             "mean_ttft": self.ttft_sum / n if n else 0.0,
             "mean_tpot": self.tpot_sum / n if n else 0.0,
             "mean_norm_latency": self.norm_latency_sum / n if n else 0.0,
@@ -177,6 +189,12 @@ class ServingEngine:
         self.budget = torch.zeros(slots, dtype=i32, device=dev)   # left
         self.last_tok = torch.zeros(slots, dtype=i32, device=dev)
         self.active_mask = torch.zeros(slots, dtype=torch.bool, device=dev)
+        # The decode step as a CUDA graph (``_graph_ok``): the graph, the
+        # side stream it was captured and is replayed on, and its
+        # (2, slots) output.
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_stream: Optional[torch.cuda.Stream] = None
+        self._graph_out: Optional[torch.Tensor] = None
         self._cols: List[torch.Tensor] = []   # (2, slots) per step
         # upper bound on decode steps any live slot can still take
         self._max_remaining = sync_every
@@ -255,14 +273,19 @@ class ServingEngine:
     def _step_fused(self) -> torch.Tensor:
         """One decode step plus sampling and termination, all queued on
         the device.  Returns ``packed`` (2, slots) int32: [emitted token
-        or -1 for an idle slot; done flag]."""
+        or -1 for an idle slot; done flag].  The decode state is written
+        in place (``copy_``), so its tensors keep their storage, as a
+        CUDA graph of this step needs."""
         if self._decode_custom is not None:
             logits, self.cache = self._decode_custom(
                 self.params, self.cache, self.last_tok[:, None], self.pos)
         else:
-            logits, self.cache = M.decode_step(
+            logits, cache = M.decode_step(
                 self.params, self.cfg, self.last_tok[:, None], self.cache,
                 self.pos)
+            if cache is not self.cache:
+                raise RuntimeError("decode_step must write the engine's "
+                                   "cache in place")
         tok = self._sample(logits)
         active = self.active_mask
         new_pos = torch.where(active, self.pos + 1, self.pos)
@@ -272,11 +295,86 @@ class ServingEngine:
             done = done | (tok == self.eos_id)
         done = active & done
         new_active = active & ~done
-        self.last_tok = torch.where(new_active, tok, self.last_tok)
-        self.pos, self.budget, self.active_mask = \
-            new_pos, new_budget, new_active
         emit = torch.where(active, tok, torch.full_like(tok, -1))
-        return torch.stack([emit, done.to(torch.int32)])
+        packed = torch.stack([emit, done.to(torch.int32)])
+        self.last_tok.copy_(torch.where(new_active, tok, self.last_tok))
+        self.pos.copy_(new_pos)
+        self.budget.copy_(new_budget)
+        self.active_mask.copy_(new_active)
+        return packed
+
+    def _graph_ok(self) -> bool:
+        """Whether the step runs as the captured CUDA graph, from what the
+        engine observes now: a CUDA device, the model's own decode step
+        (no ``decode_fn``, which may be set after construction), greedy
+        sampling, no DTensor in the cache and no ambient device mesh (a
+        step on one may run collectives).  Otherwise the step runs
+        eagerly."""
+        return (self.device.type == "cuda" and self._decode_custom is None
+                and self.temperature <= 0.0 and current_mesh() is None
+                and not any(LD.is_dtensor(t)
+                            for t in M.state_leaves(self.cache)))
+
+    def _decoder(self) -> Callable[[], torch.Tensor]:
+        """What runs this step: the eager step, or where ``_graph_ok``
+        holds a replay of the captured step (the capture first, after one
+        eager step, where there is none yet)."""
+        if not self._graph_ok():
+            return self._step_fused
+        if self._graph is None:
+            return self._capture
+        return self._replay
+
+    def _capture(self) -> torch.Tensor:
+        """Run the step eagerly on a side stream the engine owns (the
+        real step; it also warms cuBLAS, the kernels, the allocator and
+        K1's ticket buffer for that stream), then capture it there
+        (``_record``).  Capture launches nothing, so the state the eager
+        step left stands."""
+        with torch.cuda.device(self.device):
+            main = torch.cuda.current_stream()
+            self._graph_stream = torch.cuda.Stream()
+            side = self._graph_stream
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                col = self._step_fused()
+            main.wait_stream(side)
+            self._record(side)
+        self.stats.graph_captures += 1
+        return col
+
+    def _record(self, side: torch.cuda.Stream) -> None:
+        """Capture ``_step_fused`` on ``side`` as the engine's CUDA graph.
+        The kernels' wrappers run (and count a launch) as they record,
+        but nothing reaches the card until a replay."""
+        graph = torch.cuda.CUDAGraph()
+        # no automatic collection while capturing: tearing down a
+        # collected engine's graph is not permitted then and would end
+        # this capture (``torch.cuda.graph`` collects just before)
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                out = self._step_fused()
+        finally:
+            if gc_on:
+                gc.enable()
+        self._graph, self._graph_out = graph, out
+
+    def _replay(self) -> torch.Tensor:
+        """One replay of the captured step on its side stream, ordered
+        after the work queued so far and before what follows; returns a
+        copy of its output (the graph rewrites it at the next replay).
+        The kernels' wrappers do not run, so their launch counters leave
+        a replay out."""
+        main = torch.cuda.current_stream(self.device)
+        side = self._graph_stream
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._graph.replay()
+        main.wait_stream(side)
+        self.stats.graph_steps += 1
+        return self._graph_out.clone()
 
     # ------------------------------------------------------------------ #
     # Admission: batched multi-request prefill
@@ -717,7 +815,9 @@ class ServingEngine:
     def step(self, now: float) -> None:
         """One decode step over all active slots (idle slots masked).
         Only queues work: tokens and done flags reach the host every
-        ``sync_every`` steps."""
+        ``sync_every`` steps.  Traced as span ``decode.enqueue``:
+        ``graph`` 1 for a replay of the captured step, 0 for an eager
+        step (the capture's included)."""
         if not any(r is not None for r in self.active):
             if self._paged is not None:
                 # no slot decoding but sessions may be parked: settle and
@@ -725,12 +825,13 @@ class ServingEngine:
                 self.sync(now)
             if not any(r is not None for r in self.active):
                 return
+        run = self._decoder()
         tr = _trace.active
         if tr is None:
-            self._cols.append(self._step_fused())
+            self._cols.append(run())
         else:
-            sp = tr.begin("decode.enqueue")
-            self._cols.append(self._step_fused())
+            sp = tr.begin("decode.enqueue", graph=int(run == self._replay))
+            self._cols.append(run())
             tr.end(sp)
         self.stats.decode_steps += 1
         if self._paged is not None:
